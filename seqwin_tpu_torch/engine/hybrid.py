@@ -1,0 +1,366 @@
+"""Compaction-free minimizer scan of one chunk: clean windows on the device,
+irregular windows patched by the host.
+
+Counterpart: `seqwin_tpu/engine/hybrid.py`. The host prep is copied as-is
+(`_host_layout`, `_merge_intervals`, `_SparseValidity`,
+`_irregular_positions`, `host_patches`, `_asm_table`); the device side
+(`_emission`, `_canon_at_emitted`, `scan_chunk_device`) is ported to torch.
+
+- A window ending at valid k-mer position ``p`` whose last ``w`` positions are
+  all valid k-mers of one record is clean: its argmin runs directly in
+  position space (`phase1.phase1_z`).
+- Windows whose span holds an invalid k-mer position (N runs, record
+  junctions, record heads) are irregular. The host enumerates them from the
+  base codes and record layout, resolves each exact rightmost argmin, and the
+  device writes those patches over z.
+- Emission is one running max over z: emit where z >= 0 and z exceeds every
+  earlier z. Positions grow monotonically, so emitted values come out in
+  ascending position order.
+
+The port sizes each chunk's stream to the chunk itself and ships the
+augmented byte stream (bit 6 = record start) as it is.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..device import resolve_device
+from ..ops import u64
+from ..ops.hashing import MULTISHIFT, out_hash_mult
+from .phase1 import phase1_z, rot_seed_tables
+
+
+def _host_layout(record_codes: list[np.ndarray], n: int, offset: int = 0):
+    """Concatenate records at ``offset``; per-base codes + record-start offsets."""
+    codes = np.full(n, 255, dtype=np.uint8)
+    starts = np.zeros(len(record_codes), dtype=np.int64)
+    off = offset
+    for ri, c in enumerate(record_codes):
+        L = len(c)
+        codes[off:off + L] = c
+        starts[ri] = off
+        off += L
+    return codes, starts
+
+
+def _merge_intervals(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Merge overlapping/adjacent inclusive intervals."""
+    if len(a) == 0:
+        return a, b
+    order = np.argsort(a, kind='stable')
+    a, b = a[order], b[order]
+    b_run = np.maximum.accumulate(b)
+    new = np.ones(len(a), dtype=bool)
+    new[1:] = a[1:] > b_run[:-1] + 1
+    starts_i = np.flatnonzero(new)
+    ends_i = np.append(starts_i[1:], len(a)) - 1
+    return a[starts_i], b_run[ends_i]
+
+
+class _SparseValidity:
+    """Interval view of the invalid-k-mer set of one chunk.
+
+    Built in O(#invalid-bases + #records); answers validity, rank, and
+    rank->position queries with binary searches over merged intervals.
+    The k-mer domain is [0, total - k].
+    """
+
+    def __init__(self, codes: np.ndarray, starts: np.ndarray, k: int, total: int,
+                 inv_points: np.ndarray | None = None):
+        self.k = k
+        self.total = total
+        self.last = total - k  # inclusive k-mer domain end (may be < 0)
+        if inv_points is not None:
+            inv = np.asarray(inv_points, dtype=np.int64)
+            inv = inv[inv < total]
+        else:
+            # strip the record-start flag (bit 6) before the validity test
+            inv = np.flatnonzero((codes[:total] & 63) > 3).astype(np.int64)
+        a_parts = [np.maximum(inv - k + 1, 0)]
+        b_parts = [np.minimum(inv, max(self.last, 0))]
+        if k > 1 and len(starts) > 1:
+            s = np.asarray(starts[1:], dtype=np.int64)
+            a_parts.append(np.maximum(s - k + 1, 0))
+            b_parts.append(np.minimum(s - 1, max(self.last, 0)))
+        a = np.concatenate(a_parts)
+        b = np.concatenate(b_parts)
+        keep = a <= b
+        self.A, self.B = _merge_intervals(a[keep], b[keep])
+        lens = self.B - self.A + 1
+        self.cumlen = np.concatenate(([0], np.cumsum(lens)))
+
+    def invalid_leq(self, x) -> np.ndarray:
+        """#invalid k-mer positions <= x (vectorized)."""
+        x = np.minimum(np.asarray(x, dtype=np.int64), self.last)
+        if len(self.A) == 0:
+            return np.zeros_like(x)
+        j = np.searchsorted(self.A, x, side='right') - 1
+        jc = np.maximum(j, 0)
+        partial = np.clip(np.minimum(x, self.B[jc]) - self.A[jc] + 1, 0, None)
+        out = np.where(j >= 0, self.cumlen[jc] + partial, 0)
+        return np.where(x < 0, 0, out)
+
+    def is_valid(self, pos: np.ndarray) -> np.ndarray:
+        pos = np.asarray(pos, dtype=np.int64)
+        ok = (pos >= 0) & (pos <= self.last)
+        if len(self.A) == 0:
+            return ok
+        j = np.searchsorted(self.A, pos, side='right') - 1
+        jc = np.maximum(j, 0)
+        in_iv = (j >= 0) & (pos <= self.B[jc])
+        return ok & ~in_iv
+
+    def rank(self, pos) -> np.ndarray:
+        """Global valid rank (0-based) of a valid k-mer position."""
+        pos = np.asarray(pos, dtype=np.int64)
+        return pos - self.invalid_leq(pos)
+
+    def pos_of_rank(self, q) -> np.ndarray:
+        """Position of the q-th (0-based) valid k-mer."""
+        q = np.asarray(q, dtype=np.int64)
+        if len(self.A) == 0:
+            return q
+        # gap g starts at B[g-1]+1 (gap 0 starts at 0); valid count before it
+        gap_start = np.concatenate(([0], self.B + 1))
+        valid_before = gap_start - np.concatenate(([0], self.cumlen[1:]))
+        g = np.searchsorted(valid_before, q, side='right') - 1
+        return gap_start[g] + (q - valid_before[g])
+
+
+def _irregular_positions(sv: '_SparseValidity', starts: np.ndarray, w: int):
+    """Positions of irregular window ends, sparsely.
+
+    A window ending at valid k-mer ``p`` (with >= w valid k-mers so far in its
+    record) is irregular iff a *blocker* -- an invalid k-mer position or a
+    record start -- lies in [p-w+1, p]. Candidates are enumerated per merged
+    blocker interval, so the cost is O(#blockers * w), independent of N.
+    The blocker definition mirrors phase 1's clean mask exactly.
+
+    Returns sorted int64[Q].
+    """
+    starts64 = np.asarray(starts, dtype=np.int64)
+
+    # blocker intervals = invalid k-mer intervals + [s, s] per record start
+    blk_a = np.concatenate([sv.A, starts64])
+    blk_b = np.concatenate([sv.B, np.minimum(starts64, sv.last)])
+    keep = blk_a <= blk_b
+    blk_a, blk_b = _merge_intervals(blk_a[keep], blk_b[keep])
+
+    cand_list = [
+        np.arange(a, min(b + w - 1, sv.last) + 1, dtype=np.int64)
+        for a, b in zip(blk_a, blk_b)
+    ]
+    if not cand_list:
+        return np.zeros(0, np.int64)
+    cand = np.unique(np.concatenate(cand_list))
+    cand = cand[sv.is_valid(cand)]
+    if len(cand) == 0:
+        return np.zeros(0, np.int64)
+
+    # rank within record = global rank - valid count before the record start
+    c_rec = np.searchsorted(starts64, cand, side='right') - 1
+    rec_start = starts64[c_rec]
+    vb = rec_start - sv.invalid_leq(rec_start - 1)
+    rank_in_rec = sv.rank(cand) - vb
+    return cand[rank_in_rec >= w - 1]
+
+
+_SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def host_patches(starts: np.ndarray, k: int, w: int, n: int,
+                 total: int | None = None,
+                 inv_points: np.ndarray | None = None,
+                 codes: np.ndarray | None = None,
+                 packed: np.ndarray | None = None):
+    """Irregular windows and their exact rightmost-argmin patches, on host.
+
+    Phase 1 assumes every window of w consecutive positions is w consecutive
+    VALID k-mers of ONE record; windows near blockers (invalid bases, record
+    starts) violate that and are patched here. The argmin runs as a
+    sliding-window rightmost-min in valid-rank space: candidate windows are
+    grouped into contiguous rank ranges, each needed rank is hashed once, and
+    a two-block (per-block prefix/suffix rightmost argmin) pass answers every
+    window -- O(Q + w * #groups) hashed positions.
+
+    Exactly one of ``codes`` (augmented byte stream) / ``packed`` (2-bit
+    stream, requires ``inv_points``) supplies the hash input.
+
+    Returns (irr_pos int32[Q], patch_z int32[Q]); ``patch_z`` is the stream
+    position of each window's rightmost minimal member (-1 = no minimum).
+    """
+    if total is None:
+        total = n
+    sv = _SparseValidity(codes, starts, k, total, inv_points=inv_points)
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.int32))
+    if sv.last < 0:
+        return empty
+    irr_pos = _irregular_positions(sv, starts, w)
+    Q = len(irr_pos)
+    if Q == 0:
+        return empty
+
+    # group windows into contiguous rank ranges: window ends at rank r cover
+    # [r-w+1, r]; consecutive ends <= w ranks apart share one range
+    ranks = sv.rank(irr_pos)
+    brk = np.empty(Q, bool)
+    brk[0] = True
+    brk[1:] = np.diff(ranks) > w
+    gid = np.cumsum(brk) - 1
+    first = np.flatnonzero(brk)
+    last_i = np.append(first[1:], Q) - 1
+    lo = ranks[first] - (w - 1)          # >= 0: rank_in_rec >= w-1
+    hi = ranks[last_i]
+    lens = hi - lo + 1
+    flat_off = np.concatenate(([0], np.cumsum(lens)))
+    r_tot = int(flat_off[-1])
+
+    # hash every needed rank once
+    all_ranks = np.arange(r_tot, dtype=np.int64) + np.repeat(lo - flat_off[:-1], lens)
+    pos = sv.pos_of_rank(all_ranks)
+    if packed is not None:
+        from ..ops.host_hash import canon_at_packed
+
+        h = canon_at_packed(packed, pos, k)
+    else:
+        from ..ops.host_hash import canon_at
+
+        h = canon_at(codes, pos, k)
+
+    # two-block sliding rightmost-min over the flat rank array (block = w):
+    # a window [s, e=s+w-1] is exactly suffix-of-block(s) + prefix-of-block(e),
+    # and both parts lie inside [s, e], so blocks spanning group boundaries
+    # never leak values into any real window. Sentinel pad never queried.
+    nb = -(-r_tot // w)
+    hh = np.full(nb * w, _SENTINEL, np.uint64)
+    hh[:r_tot] = h
+    hh = hh.reshape(nb, w)
+    iota = np.arange(w)
+    # L: rightmost argmin of block[0..j] -- flag where h equals its running
+    # min (ties re-flag: rightmost wins), then last flagged index
+    runmin = np.minimum.accumulate(hh, axis=1)
+    lidx = np.maximum.accumulate(
+        np.where(hh == runmin, iota[None, :], -1), axis=1)
+    # R: rightmost argmin of block[j..end] -- in reversed coords the
+    # rightmost tie is the LAST strict improvement of the running min
+    rev = hh[:, ::-1]
+    runminr = np.minimum.accumulate(rev, axis=1)
+    rflag = np.empty(rev.shape, bool)
+    rflag[:, 0] = True
+    rflag[:, 1:] = runminr[:, 1:] < runminr[:, :-1]
+    ridx_rev = np.maximum.accumulate(np.where(rflag, iota[None, :], -1), axis=1)
+
+    f_e = flat_off[gid] + (ranks - lo[gid])
+    f_s = f_e - (w - 1)
+    be, ce = np.divmod(f_e, w)
+    bs, cs = np.divmod(f_s, w)
+    lmin = runmin[be, ce]
+    lflat = be * w + lidx[be, ce]
+    crev = w - 1 - cs
+    rmin = runminr[bs, crev]
+    rflat = bs * w + (w - 1 - ridx_rev[bs, crev])
+    use_l = lmin <= rmin  # L part is the right half: ties stay rightmost
+    zflat = np.where(use_l, lflat, rflat)
+    zmin = np.minimum(lmin, rmin)
+    z_rank = zflat - flat_off[gid] + lo[gid]
+    z_pos = sv.pos_of_rank(z_rank)
+    patch_z = np.where(zmin == _SENTINEL, -1, z_pos).astype(np.int32)
+    return irr_pos.astype(np.int32), patch_z
+
+
+def _asm_table(record_offsets, rec_base: int, n_records: int, cap: int) -> np.ndarray:
+    """int32[cap] table: local record index -> assembly index.
+
+    Built from the global cumulative record counts (`record_offsets`) for the
+    records [rec_base, rec_base + n_records); padding rows hold the last
+    assembly (harmless -- consumers mask dead lanes).
+    """
+    tab = np.zeros(cap, dtype=np.int32)
+    if record_offsets is not None and n_records:
+        off_h = np.asarray(record_offsets, dtype=np.int64)
+        recs = rec_base + np.arange(n_records, dtype=np.int64)
+        tab[:n_records] = np.clip(
+            np.searchsorted(off_h, recs, side='right') - 1, 0, len(off_h) - 2
+        ).astype(np.int32)
+        tab[n_records:] = tab[max(n_records - 1, 0)]
+    return tab
+
+
+_EMIT_ROW = 1 << 13  # row width of the blocked emission scan
+
+
+def _emission(z: torch.Tensor) -> torch.Tensor:
+    """Emitted values of a (patched) z stream, in stream order: z >= 0 and z
+    strictly above the running max of all earlier z (starting from -2).
+
+    The running max is evaluated row-blocked, as `_emission_rows` does in
+    the JAX package: a per-row cummax plus one exclusive cummax over the row
+    maxima. On a CUDA device torch scans each row in one block, so a single
+    2^25-long row takes ~80 ms where rows of 2^13 take a small fraction."""
+    n = z.numel()
+    pad = (-n) % _EMIT_ROW
+    if pad:
+        z = torch.cat([z, torch.full((pad,), -1, dtype=z.dtype, device=z.device)])
+    zr = z.view(-1, _EMIT_ROW)
+    cm = torch.cummax(zr, 1).values
+    first = torch.full((zr.shape[0], 1), -2, dtype=z.dtype, device=z.device)
+    before = torch.cat([first, cm[:, :-1]], 1)
+    carry = torch.cat([first[:1, 0], torch.cummax(cm[:, -1], 0).values[:-1]])
+    return zr[(zr >= 0) & (zr > before) & (zr > carry[:, None])]
+
+
+def _canon_at_emitted(codes_aug: torch.Tensor, eidx: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical ntHash (int64 bit patterns) at emitted positions: k gathers
+    of the code stream + table folds. Emitted positions are valid k-mers."""
+    dev = codes_aug.device
+    fwd_t, rev_t = rot_seed_tables(k, dev)
+    f = torch.zeros(eidx.shape, dtype=torch.int64, device=dev)
+    r = torch.zeros_like(f)
+    for j in range(k):
+        c = (codes_aug[eidx + j] & 3).long()
+        f ^= fwd_t[j][c]
+        r ^= rev_t[j][c]
+    return f + r
+
+
+def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
+                      rec_base: int = 0, record_offsets=None, device=None):
+    """Scan one chunk on ``device``; emitted minimizers stay device-resident.
+
+    Returns (e_oh int64 bit patterns of u64, e_pos int64, e_rec int64,
+    count int, e_asm int64), each of exactly ``count`` entries in stream
+    order, or (None, None, None, 0, None) for an empty chunk. Record ids are
+    global via ``rec_base``; ``e_asm`` is the per-entry assembly index when
+    ``record_offsets`` is given (else zeros).
+    """
+    dev = resolve_device(device)
+    total = int(sum(len(c) for c in record_codes))
+    if total == 0:
+        return None, None, None, 0, None
+
+    with record_function('hybrid.host_prep'):
+        codes, starts = _host_layout(record_codes, total)
+        # empty records share their start with the next record (or sit at total)
+        codes[starts[starts < total]] |= 64
+        irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes)
+        asm_tab = _asm_table(record_offsets, rec_base, len(starts), len(starts))
+
+    codes_d = torch.from_numpy(codes).to(dev)
+    z = phase1_z(codes_d, k, w)
+    if len(irr_pos):
+        z[torch.from_numpy(irr_pos).to(dev).long()] = torch.from_numpy(patch_z).to(dev)
+    eidx = _emission(z).long()
+    count = int(eidx.numel())
+
+    t = _canon_at_emitted(codes_d, eidx, k) * u64.as_signed(out_hash_mult(k))
+    e_oh = t ^ u64.shr(t, MULTISHIFT)
+    starts_d = torch.from_numpy(starts).to(dev)
+    # over ALL starts (duplicates included): right-searchsorted picks the
+    # last record starting at or before the position -- the non-empty one
+    rec_local = (torch.searchsorted(starts_d, eidx, right=True) - 1).clamp_(0, len(starts) - 1)
+    e_pos = eidx - starts_d[rec_local]
+    e_rec = rec_local + rec_base
+    e_asm = torch.from_numpy(asm_tab).to(dev).long()[rec_local]
+    return e_oh, e_pos, e_rec, count, e_asm

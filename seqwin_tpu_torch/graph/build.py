@@ -1,0 +1,194 @@
+"""End-to-end minimizer graph construction.
+
+Counterpart: `seqwin_tpu/graph/build.py` (`build`, `build_deferred`, the
+single-device path of `_build_impl`, `kept_node_layout`, `filter_kmers`).
+
+    host FASTA ingest -> base-code streams
+      -> chunked scan on the device (`engine/hybrid.scan_chunk_device`)
+      -> stable sorts + run merges on the device (`engine/aggregate.py`)
+      -> numpy arrays in the output contract.
+
+Records are packed into chunks of at most ``SEQWIN_TPU_TORCH_CHUNK_BASES``
+bases (default 2^25), in global scan order, so the output is the same for
+any chunking. Paths this slice does not port raise `NotImplementedError`
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Iterable
+
+import numpy as np
+from torch.profiler import record_function
+
+from ..device import resolve_device
+from ..engine.aggregate import aggregate_device
+from ..engine.hybrid import scan_chunk_device
+from ..io.fasta import parse_fasta_codes
+from .dtypes import KMER_DTYPE
+
+U32_MAX = (1 << 32) - 1
+
+# Max bases per device scan call.
+DEFAULT_CHUNK_BASES = 1 << 25
+
+
+def build(
+    assembly_paths: Iterable[Path | str],
+    kmerlen: int,
+    windowsize: int,
+    is_targets: Iterable[bool],
+    n_cpu: int = 1,
+    low_memory: bool = False,
+    backend: str = 'auto',
+    devices: int = 1,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, list[tuple[str, ...]]]:
+    """Build a minimizer graph from assembly FASTA files on ``device``
+    (default: the GPU; raises when there is none).
+
+    Returns:
+        (kmers, nodes, edges, record_offsets, record_ids)
+        - kmers: KMER_DTYPE[M], minimizer occurrences grouped by node, scan
+          order within each group;
+        - nodes: NODE_DTYPE[U] sorted by hash (penalty zeroed);
+        - edges: EDGE_DTYPE[E] sorted by (first, second);
+        - record_offsets: uintp[A+1] cumulative record counts per assembly;
+        - record_ids: per assembly, tuple of FASTA record ids.
+    """
+    return _build_impl(assembly_paths, kmerlen, windowsize, is_targets,
+                       n_cpu=n_cpu, low_memory=low_memory, backend=backend,
+                       defer=False, devices=devices, device=device)
+
+
+def build_deferred(
+    assembly_paths: Iterable[Path | str],
+    kmerlen: int,
+    windowsize: int,
+    is_targets: Iterable[bool],
+    n_cpu: int = 1,
+    low_memory: bool = False,
+    backend: str = 'auto',
+    keep_codes: bool = False,
+    devices: int = 1,
+    device=None,
+):
+    """`build` variant returning (graph, record_offsets, record_ids) where
+    ``graph`` keeps the k-mer stream and edges on the device
+    (`engine.aggregate.DeviceGraph`; ``graph.nodes`` is on the host)."""
+    if keep_codes:
+        raise NotImplementedError('keep_codes: ROADMAP queue A12 (device sketches)')
+    return _build_impl(assembly_paths, kmerlen, windowsize, is_targets,
+                       n_cpu=n_cpu, low_memory=low_memory, backend=backend,
+                       defer=True, devices=devices, device=device)
+
+
+def _check_supported(low_memory: bool, backend: str, devices: int) -> None:
+    if backend in ('numpy', 'oracle'):
+        raise NotImplementedError(f"backend={backend!r}: ROADMAP queue A10 (host-only backends)")
+    if low_memory:
+        raise NotImplementedError('low_memory: ROADMAP queue A8 (long records)')
+    if devices != 1:
+        raise NotImplementedError('devices != 1: ROADMAP queue A13 (multi-GPU)')
+
+
+def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
+                n_cpu: int, low_memory: bool, backend: str, defer: bool,
+                devices: int = 1, device=None):
+    dev = resolve_device(device)
+    _check_supported(low_memory, backend, devices)
+    paths = [str(p) for p in assembly_paths]
+    targets = [bool(t) for t in is_targets]
+    if len(paths) != len(targets):
+        raise ValueError('assembly_paths and is_targets must have the same length')
+    if len(paths) > U32_MAX:
+        raise ValueError('Number of input assemblies exceeds uint32 range')
+    chunk_budget = int(os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
+
+    record_ids: list[tuple[str, ...]] = []
+    record_offsets = [0]
+    chunk_results = []
+    chunk_codes: list[np.ndarray] = []
+    chunk_rec_base = 0
+    chunk_bases = 0
+
+    def flush():
+        nonlocal chunk_codes, chunk_rec_base, chunk_bases
+        if not chunk_codes:
+            return
+        chunk_results.append(scan_chunk_device(
+            chunk_codes, kmerlen, windowsize, chunk_rec_base,
+            record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev))
+        chunk_rec_base += len(chunk_codes)
+        chunk_codes, chunk_bases = [], 0
+
+    # files parse in worker threads while earlier chunks scan
+    with ThreadPoolExecutor(max_workers=max(1, min(int(n_cpu), len(paths) or 1))) as ex:
+        for pi, (ids, codes_list) in enumerate(ex.map(parse_fasta_codes, paths)):
+            record_ids.append(tuple(ids))
+            record_offsets.append(record_offsets[-1] + len(ids))
+            if record_offsets[-1] > U32_MAX:
+                raise ValueError('Total number of FASTA records exceeds uint32 range')
+            for rid, codes in zip(ids, codes_list):
+                if len(codes) > U32_MAX:
+                    raise ValueError(
+                        f'Sequence length exceeds uint32 range for record {rid} in assembly {paths[pi]}')
+                if len(codes) > chunk_budget:
+                    raise NotImplementedError(
+                        f'record {rid} ({len(codes)} bases) exceeds the chunk budget '
+                        f'({chunk_budget}): ROADMAP queue A8 (long records)')
+                if chunk_bases + len(codes) > chunk_budget and chunk_codes:
+                    flush()
+                chunk_codes.append(codes)
+                chunk_bases += len(codes)
+        flush()
+
+    offsets = np.array(record_offsets, dtype=np.uintp)
+    with record_function('build.aggregate'):
+        res = aggregate_device(chunk_results, np.asarray(targets, dtype=bool), defer=defer)
+    if defer:
+        return res, offsets, record_ids
+    kmers, nodes, edges = res
+    return kmers, nodes, edges, offsets, record_ids
+
+
+def kept_node_layout(
+    nodes: np.ndarray, used_hashes
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Which nodes survive ``used_hashes`` and where their k-mers land.
+
+    Returns (keep bool[len(nodes)], out_nodes with rebased start/stop,
+    total kept k-mer entries). Shared by `filter_kmers` and the
+    device-resident compaction (`engine.aggregate.DeviceGraph.compact_kmers`).
+    """
+    used = np.fromiter((int(h) for h in used_hashes), dtype=np.uint64)
+    used.sort()
+    keep = np.isin(nodes['hash'], used, assume_unique=False)
+    kept_nodes = nodes[keep]
+    sizes = (kept_nodes['stop'] - kept_nodes['start']).astype(np.int64)
+    new_stops = np.cumsum(sizes)
+    out_nodes = kept_nodes.copy()
+    out_nodes['start'] = new_stops - sizes
+    out_nodes['stop'] = new_stops
+    total = int(new_stops[-1]) if len(kept_nodes) else 0
+    return keep, out_nodes, total
+
+
+def filter_kmers(
+    kmers: np.ndarray, nodes: np.ndarray, used_hashes
+) -> tuple[np.ndarray, np.ndarray]:
+    """Keep only k-mers/nodes whose hash is in ``used_hashes``; rebase ranges."""
+    keep, out_nodes, total = kept_node_layout(nodes, used_hashes)
+    kept_nodes = nodes[keep]
+    new_kmers = np.zeros(total, dtype=KMER_DTYPE)
+    if total:
+        # vectorized segment gather: within-segment offset + old segment start
+        sizes = (kept_nodes['stop'] - kept_nodes['start']).astype(np.int64)
+        old_starts = kept_nodes['start'].astype(np.int64)
+        new_starts = out_nodes['start'].astype(np.int64)
+        seg_idx = (np.arange(total, dtype=np.int64)
+                   + np.repeat(old_starts - new_starts, sizes))
+        new_kmers = kmers[seg_idx]
+    return new_kmers, out_nodes

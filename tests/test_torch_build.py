@@ -1,0 +1,146 @@
+"""seqwin_tpu_torch's graph build on the CPU against the JAX package's build
+(numpy backend for the 5-tuple, the device path for the deferred graph)."""
+import gzip
+
+import numpy as np
+import pytest
+
+from seqwin_tpu.graph.build import build as jax_build
+from seqwin_tpu.graph.build import build_deferred as jax_build_deferred
+from seqwin_tpu.graph.build import kept_node_layout
+from seqwin_tpu_torch.graph.build import build, build_deferred
+from seqwin_tpu_torch.io.fasta import parse_fasta_codes
+
+K, W = 21, 50
+
+
+@pytest.fixture(scope='module')
+def fastas(tmp_path_factory):
+    """6 related assemblies: multi-record, N runs and scattered Ns, lowercase
+    bases, one empty record, one short record, one gzip file."""
+    tmp = tmp_path_factory.mktemp('fastas')
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, size=20000).astype(np.uint8)
+    paths, targets = [], []
+    for i in range(6):
+        g = base.copy()
+        idx = rng.integers(0, len(g), size=200)
+        g[idx] = (g[idx] + 1) % 4
+        s = np.frombuffer(b'ACGT', np.uint8)[g].copy()
+        s[rng.integers(0, len(s), size=30)] = ord('N')
+        s[5000 + 100 * i:5100 + 100 * i] = ord('N')
+        s[12000:12400] = np.char.lower(s[12000:12400].view('S1')).view(np.uint8)
+        parts = np.split(s, np.sort(rng.integers(0, len(s), size=1 + i % 3)))
+        text = b''
+        for j, p in enumerate(parts):
+            text += f'>a{i}_r{j} description\n'.encode()
+            text += b'\n'.join(p[o:o + 70].tobytes() for o in range(0, len(p), 70)) + b'\n'
+        if i == 2:
+            text += b'>empty\n'
+        text += b'>short\nACGTACGTAC\n'
+        if i == 4:
+            path = tmp / f'g{i}.fa.gz'
+            path.write_bytes(gzip.compress(text))
+        else:
+            path = tmp / f'g{i}.fa'
+            path.write_bytes(text)
+        paths.append(path)
+        targets.append(i < 3)
+    return paths, targets
+
+
+@pytest.fixture(scope='module')
+def reference(fastas):
+    paths, targets = fastas
+    return jax_build(paths, K, W, targets, backend='numpy')
+
+
+def _assert_build_equal(got, want):
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == want[4]
+
+
+@pytest.mark.parametrize('budget', [None, '30000', '45000'])
+def test_build_matches_jax(fastas, reference, monkeypatch, budget):
+    """Default budget (one chunk) and budgets that force several chunks."""
+    if budget:
+        monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', budget)
+    paths, targets = fastas
+    got = build(paths, K, W, targets, n_cpu=2, device='cpu')
+    assert len(reference[0]) > 1000 and (reference[2]['weight'] > 1).any()
+    _assert_build_equal(got, reference)
+
+
+@pytest.fixture(scope='module')
+def deferred(fastas):
+    paths, targets = fastas
+    got = build_deferred(paths, K, W, targets, device='cpu')
+    want = jax_build_deferred(paths, K, W, targets)
+    return got, want
+
+
+def test_build_deferred_matches_jax(deferred, reference):
+    (g, offsets, ids), (jg, j_offsets, j_ids) = deferred
+    np.testing.assert_array_equal(offsets, j_offsets)
+    assert ids == j_ids
+    np.testing.assert_array_equal(g.nodes, jg.nodes)
+    np.testing.assert_array_equal(g.nodes, reference[1])
+    assert (g.n_kmers, g.n_edges) == (jg.n_kmers, jg.n_edges)
+    for a, b in zip(g.materialize(), jg.materialize()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('th', [0.0, 1.0, 2.5, 4.0])
+def test_deferred_filter_edges_matches_jax(deferred, th):
+    (g, *_), (jg, *_) = deferred
+    np.testing.assert_array_equal(g.filter_edges(th), jg.filter_edges(th))
+
+
+@pytest.mark.parametrize('frac', [0.0, 0.05, 0.5])
+def test_deferred_compact_kmers_matches_jax(deferred, frac):
+    (g, *_), (jg, *_) = deferred
+    rng = np.random.default_rng(int(frac * 100))
+    used = rng.choice(g.nodes['hash'], size=int(g.n_nodes * frac), replace=False)
+    keep, _, total = kept_node_layout(g.nodes, used)
+    np.testing.assert_array_equal(g.compact_kmers(keep, total), jg.compact_kmers(keep, total))
+
+
+@pytest.mark.parametrize('kwargs,env', [
+    (dict(low_memory=True), {}),
+    (dict(backend='numpy'), {}),
+    (dict(backend='oracle'), {}),
+    (dict(devices=2), {}),
+    ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
+])
+def test_unported_paths_raise(fastas, monkeypatch, kwargs, env):
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    paths, targets = fastas
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build(paths, K, W, targets, device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('budget', [None, 30000])
+def test_build_deferred_counts_chunks(fastas, monkeypatch, budget):
+    """``n_chunks`` follows the packing rule: records in scan order, a new
+    chunk when the next record would pass the budget."""
+    if budget:
+        monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(budget))
+    paths, targets = fastas
+    lens = [len(c) for p in paths for c in parse_fasta_codes(str(p))[1]]
+    want, bases = 1, 0
+    for n in lens:
+        if budget and bases + n > budget and bases:
+            want, bases = want + 1, 0
+        bases += n
+    g, *_ = build_deferred(paths, K, W, targets, device='cpu')
+    assert g.n_chunks == want
+    assert (want > 1) == bool(budget)
+
+
+def test_keep_codes_raises(fastas):
+    paths, targets = fastas
+    with pytest.raises(NotImplementedError, match='A12'):
+        build_deferred(paths, K, W, targets, keep_codes=True, device='cpu')

@@ -1,0 +1,50 @@
+"""seqwin_tpu_torch stands alone: no JAX, nothing of seqwin_tpu, and no
+quiet CPU fallback when the default device (the GPU) is missing."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / 'seqwin_tpu_torch'
+
+
+def test_import_leaves_jax_and_seqwin_tpu_out():
+    code = (
+        'import sys\n'
+        f'sys.path.insert(0, {str(REPO)!r})\n'
+        'import seqwin_tpu_torch\n'
+        'seqwin_tpu_torch.graph.build\n'
+        'import seqwin_tpu_torch.engine.hybrid, seqwin_tpu_torch.engine.aggregate\n'
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'seqwin_tpu')]\n"
+        'print(bad)\n'
+    )
+    res = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                         cwd=REPO.parent, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == '[]'
+
+
+def test_sources_name_no_jax():
+    files = [p for p in PKG.rglob('*') if p.suffix in ('.py', '.cu', '.cpp')]
+    assert any(p.suffix == '.cu' for p in files)
+    for p in files:
+        text = p.read_text()
+        assert not re.search(r'\bjax\b', text), p
+        assert not re.search(r'\bseqwin_tpu\.', text), p
+
+
+def test_default_device_raises_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from seqwin_tpu_torch.graph.build import build, build_deferred
+
+    fa = tmp_path / 'a.fa'
+    fa.write_text('>r\nACGTACGTACGTACGTACGTACGTACGT\n')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build([fa], 5, 3, [True])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_deferred([fa], 5, 3, [True])
