@@ -7,20 +7,32 @@ Run from the repository root on a machine with an H100 and nvcc:
 
 Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
-1. Environment and build: the card's name and power limit, then the
-   package's CUDA kernel built with nvcc from ``seqwin_tpu_torch/csrc``.
+1. Environment and build: the card's name and power limit, the shard
+   devices D of the multi-device build (every card when there are several,
+   else four shards on card 0), then the package's CUDA kernels (B1
+   `phase1_z`, B2 `phase1_zc`, B3 `phase1_pfx`, one source) built with nvcc
+   from ``seqwin_tpu_torch/csrc``.
 2. Each kernel against its plain torch version on the card, on seeded
    streams with N runs, short and empty records and small-k tie cases over a
-   (k, w) grid, plus one 2^25-position chunk at k=21, w=200. Exact equality
-   is required; both versions are timed with CUDA events.
-3. The GPU build against the package's CPU build on a reduced synthetic
-   dataset (8 assemblies x ~1 Mbp): all five outputs byte-equal.
+   (k, w) grid, one 2^25-position chunk at k=21, w=200 (the single-device
+   path's chunk), and for B2 and B3 the first shard stream of the main path
+   over D (the multi-device path's input). Exact equality of every output
+   is required; both versions are timed with CUDA events on the main-path
+   input of each kernel and on the 2^25 chunk.
+3. On a reduced synthetic dataset (8 assemblies x ~1 Mbp): the GPU build
+   against the package's CPU build, then the multi-device build over D
+   against the GPU build, all five outputs byte-equal, with B2 and B3
+   launched once per shard holding bases and B1 not at all. Then the
+   multi-device pre-pass and build step run again under torch's sync debug
+   mode 'error': any call in them that waits on the device fails the phase.
 4. The main path at a real size: 64 genomes x 3 Mbp (192 Mbp), k=21,
-   w=200, through `build_deferred`, the host penalty threshold the pipeline
-   uses without mash, `filter_edges` and `compact_kmers`; output invariants
-   and per-kernel launch counts are checked against the chunks the build
-   scanned. ``--profile`` traces one more run with torch.profiler and prints
-   the device-time table and the package's host spans.
+   w=200, through `build_deferred` and through `build_distributed` over D,
+   each followed by the host penalty threshold the pipeline uses without
+   mash, `filter_edges` and `compact_kmers`; output invariants and
+   per-kernel launch counts are checked for each run, and the two runs'
+   nodes and edges must be equal. ``--profile`` traces one more run of each
+   with torch.profiler and prints the device-time table and the package's
+   host spans.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -41,6 +53,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 K, W = 21, 200
 GRID = [(1, 4), (4, 3), (7, 10), (21, 200), (31, 16), (2, 9), (3, 17)]
+MAIN_GENOMES, MAIN_LEN = 64, 3_000_000
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM peak outside the tensor cores
 
@@ -99,33 +112,89 @@ def phase_build():
 
     t0 = time.perf_counter()
     phase1._lib()
-    log(f'[build] phase1_z built and loaded in {time.perf_counter() - t0:.2f} s')
-    txt = _kernels.BUILD_DIR / 'phase1_z.ptxas.txt'
+    log(f'[build] phase1 (kernels B1, B2, B3) built and loaded in {time.perf_counter() - t0:.2f} s')
+    txt = _kernels.BUILD_DIR / 'phase1.ptxas.txt'
     if txt.exists():
-        log('[build] ptxas phase1_z: ' + ' | '.join(
+        log('[build] ptxas phase1: ' + ' | '.join(
             ln.strip() for ln in txt.read_text().splitlines() if 'Used' in ln or 'spill' in ln))
 
 
-def phase_kernels(seed: int) -> dict:
+def _kernel_specs():
+    """Per kernel: name, TPU kernel mode it replaces, its wrapper and plain
+    version as functions of (codes, k, w) returning a tuple of tensors, and
+    the bytes it must move per position."""
+    from seqwin_tpu_torch.engine import phase1
+
+    def pfx_plain(codes, k, w):
+        return phase1.pfx_from_z(phase1.phase1_z_plain(codes, k, w), phase1._TILE)
+
+    return [
+        ('phase1_z', 'seqwin_tpu/engine/pallas_scan.py:202',
+         lambda c, k, w: (phase1.phase1_z(c, k, w),),
+         lambda c, k, w: (phase1.phase1_z_plain(c, k, w),), 1 + 4),
+        ('phase1_zc', 'seqwin_tpu/engine/pallas_scan.py:350',
+         phase1.phase1_zc, phase1.phase1_zc_plain, 1 + 4 + 8),
+        ('phase1_pfx', 'seqwin_tpu/engine/pallas_scan.py:318',
+         lambda c, k, w: phase1.phase1_pfx(c, k, w)[:2], pfx_plain, 1 + 4 + 4),
+    ]
+
+
+def _compare(got, want):
+    """(mismatches, max |difference|) over every output tensor."""
+    bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+    worst = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                for a, b in zip(got, want))
+    return bad, worst
+
+
+def parse_records(paths):
+    """Records and cumulative record counts of the assemblies at ``paths``."""
+    from seqwin_tpu_torch.io.fasta import iter_assemblies
+
+    records, offsets = [], [0]
+    for ids, codes in iter_assemblies([str(p) for p in paths], 8):
+        records += codes
+        offsets.append(offsets[-1] + len(ids))
+    return records, np.array(offsets, dtype=np.uintp)
+
+
+def first_shard_stream(paths, devices):
+    """The first shard's augmented stream of the multi-device build over
+    ``devices`` (`_shard_layout` of the parsed records), on its card: the
+    input kernels B2 and B3 get on that path."""
+    from seqwin_tpu_torch.parallel import distributed as dist
+
+    records, offsets = parse_records(paths)
+    shard_of = dist.partition_records([len(c) for c in records], len(devices))
+    return dist._shard_layout(records, shard_of, devices[:1], K, W, offsets)[0]['codes']
+
+
+def time_kernel(fn, plain, codes, bytes_per_pos: int) -> dict:
+    """Kernel and plain ms (CUDA events) on ``codes`` at k=21, w=200, and
+    the bound: each input byte read once, each output written once, or ~20
+    integer ops per position for a rolling hash and an amortised O(1)
+    sliding minimum (the pfx scans add a few), whichever takes longer."""
+    n = codes.numel()
+    ms = cuda_ms(lambda: fn(codes, K, W), iters=20)
+    plain_ms = cuda_ms(lambda: plain(codes, K, W), iters=3, warmup=1)
+    bytes_s = bytes_per_pos * n / HBM_BYTES_PER_S
+    ops_s = 20 * n / NON_TENSOR_OPS_PER_S
+    return dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by='bytes' if bytes_s >= ops_s else 'operations')
+
+
+def phase_kernels(seed: int, shard_codes) -> list[dict]:
+    """Each kernel against its plain version on the GRID streams, on one
+    2^25 chunk and (B2, B3) on ``shard_codes``, the first shard stream of
+    the multi-device main path; exact equality, both timed with CUDA events
+    on the kernel's main-path input and on the chunk."""
     import torch
 
-    from seqwin_tpu_torch.engine.phase1 import phase1_z, phase1_z_plain
-
     dev = torch.device('cuda')
-    worst = 0
+    streams = []
     for k, w in GRID:
         rng = np.random.default_rng(seed + 7 * k + w)
-        codes = torch.from_numpy(aug_stream(mixed_records(rng, scale=4))).to(dev)
-        zk = phase1_z(codes, k, w)
-        zp = phase1_z_plain(codes, k, w)
-        torch.cuda.synchronize()
-        bad = int((zk != zp).sum())
-        worst = max(worst, int((zk.long() - zp.long()).abs().max()))
-        log(f'[kernel] phase1_z k={k} w={w} n={codes.numel()} mismatches={bad} '
-            f'emitting={int((zp >= 0).sum())}')
-        if bad:
-            raise AssertionError(f'phase1_z k={k} w={w}: {bad} mismatches')
-
+        streams.append((k, w, torch.from_numpy(aug_stream(mixed_records(rng, scale=4))).to(dev)))
     # one main-path chunk: 2^25 positions, 3 Mbp-scale records with N runs
     rng = np.random.default_rng(seed)
     n = 1 << 25
@@ -135,31 +204,61 @@ def phase_kernels(seed: int) -> dict:
     for r in recs:
         for s in rng.integers(0, len(r) - 200, size=4):
             r[s:s + int(rng.integers(1, 200))] = 255
-    codes = torch.from_numpy(aug_stream(recs)).to(dev)
-    zk = phase1_z(codes, K, W)
-    zp = phase1_z_plain(codes, K, W)
-    torch.cuda.synchronize()
-    bad = int((zk != zp).sum())
-    worst = max(worst, int((zk.long() - zp.long()).abs().max()))
-    if bad:
-        raise AssertionError(f'phase1_z 2^25 chunk: {bad} mismatches')
-    ms = cuda_ms(lambda: phase1_z(codes, K, W), iters=20)
-    plain_ms = cuda_ms(lambda: phase1_z_plain(codes, K, W), iters=3, warmup=1)
-    # least work: read 1 B and write 4 B per position; ~20 integer ops per
-    # position for a rolling hash and an amortised O(1) sliding minimum
-    bytes_s = 5 * n / HBM_BYTES_PER_S
-    ops_s = 20 * n / NON_TENSOR_OPS_PER_S
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    log(f'[kernel] phase1_z n=2^25 k={K} w={W}: mismatches=0 kernel {ms:.3f} ms, '
-        f'plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.1f} us '
-        f'({"bytes" if bytes_s >= ops_s else "operations"})')
-    return dict(name='phase1_z', route='cuda',
-                source='seqwin_tpu_torch/csrc/phase1_z.cu',
-                replaces='seqwin_tpu/engine/pallas_scan.py:202',
-                launches=None, mismatches=0, max_abs_err=float(worst),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_us=bound_ms * 1e3,
-                bound_by='bytes' if bytes_s >= ops_s else 'operations',
-                library_ms=None, n=n)
+    chunk = torch.from_numpy(aug_stream(recs)).to(dev)
+
+    out = []
+    for name, replaces, fn, plain, bytes_per_pos in _kernel_specs():
+        # B1 runs on the single-device path's chunks, B2 and B3 on the
+        # multi-device path's shard streams
+        main_in = chunk if name == 'phase1_z' else shard_codes
+        inputs = streams + [(K, W, chunk)] + ([] if main_in is chunk else [(K, W, main_in)])
+        worst = 0
+        for k, w, codes in inputs:
+            got, want = fn(codes, k, w), plain(codes, k, w)
+            torch.cuda.synchronize()
+            bad, err = _compare(got, want)
+            del got, want
+            worst = max(worst, err)
+            log(f'[kernel] {name} k={k} w={w} n={codes.numel()} mismatches={bad}')
+            if bad:
+                raise AssertionError(f'{name} k={k} w={w}: {bad} mismatches')
+        at_chunk = time_kernel(fn, plain, chunk, bytes_per_pos)
+        at_main = at_chunk if main_in is chunk else time_kernel(fn, plain, main_in, bytes_per_pos)
+        for label, t in (('2^25 chunk', at_chunk), ('main-path input', at_main)):
+            log(f"[kernel] {name} {label} n={t['n']} k={K} w={W}: mismatches=0 kernel "
+                f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_by']})")
+        out.append(dict(name=name, route='cuda', source='seqwin_tpu_torch/csrc/phase1.cu',
+                        replaces=replaces, launches=None, mismatches=0,
+                        max_abs_err=float(worst), **at_main, library_ms=None,
+                        chunk_n=n, chunk_ms=at_chunk['ms'], chunk_plain_ms=at_chunk['plain_ms'],
+                        chunk_bound_ms=at_chunk['bound_ms']))
+    return out
+
+
+def launch_counters():
+    from seqwin_tpu_torch.engine import phase1
+
+    return {name: getattr(phase1, name) for name in ('phase1_z', 'phase1_zc', 'phase1_pfx')}
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def shard_devices() -> list:
+    """Every card when there are several, else four shards on card 0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device('cuda', i) for i in range(n)]
+    return [torch.device('cuda', 0)] * 4
 
 
 def write_fasta(path: Path, records: list[tuple[str, np.ndarray]]):
@@ -199,8 +298,57 @@ def synth(tmp: Path, n_genomes: int, genome_len: int, rng, n_records: int = 1,
     return paths, targets
 
 
-def phase_cpu_vs_gpu(seed: int):
+def _assert_same_build(name, got, want):
+    for part, a, b in zip(('kmers', 'nodes', 'edges', 'record_offsets'), got[:4], want[:4]):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f'{name}: {part} differ')
+    if got[4] != want[4]:
+        raise AssertionError(f'{name}: record_ids differ')
+
+
+def check_no_sync(paths, devices):
+    """The multi-device pre-pass and build step over ``devices`` enqueue
+    without a host sync: each runs under torch's sync debug mode 'error',
+    which raises on any call that waits on the device."""
+    import torch
+
+    from seqwin_tpu_torch.parallel import distributed as dist
+
+    records, offsets = parse_records(paths)
+    n_dev = len(devices)
+    shards = dist._shard_layout(records, dist.partition_records([len(c) for c in records], n_dev),
+                                devices, K, W, offsets)
+    torch.cuda.synchronize()
+
+    def strict(fn, *args):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+
+    # the guard is live: a call that reads the device's data back raises
+    try:
+        strict(torch.bincount, torch.zeros(1, dtype=torch.int64, device=devices[0]))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("sync debug mode 'error' let torch.bincount through")
+    pre = strict(dist._prepass, shards, K, W, n_dev)
+    counts, e_hist, p_hist = dist._read_prepass(pre, n_dev)
+    _, _, checks = strict(dist._step, shards, K, W, counts, e_hist, p_hist, devices)
+    dist._check_step(checks)
+    log(f'[no-sync] pre-pass and build step of {sum(s is not None for s in shards)} shards '
+        "ran under sync debug mode 'error' without a sync; step counts agree with the pre-pass")
+
+
+def phase_small(seed: int, devices):
+    """8 x 1 Mbp (3 records each, N runs, one empty record): the GPU build
+    against the CPU build, and the multi-device build over ``devices``
+    against the single-device GPU build, all five outputs byte-equal; then
+    `check_no_sync` on the same data."""
     from seqwin_tpu_torch.graph import build
+    from seqwin_tpu_torch.parallel import build_distributed
 
     rng = np.random.default_rng(seed + 1)
     with tempfile.TemporaryDirectory() as td:
@@ -212,24 +360,36 @@ def phase_cpu_vs_gpu(seed: int):
         t0 = time.perf_counter()
         cpu = build(paths, K, W, targets, n_cpu=8, device='cpu')
         t_cpu = time.perf_counter() - t0
-    for name, a, b in zip(('kmers', 'nodes', 'edges', 'record_offsets'), gpu[:4], cpu[:4]):
-        if a.dtype != b.dtype or not np.array_equal(a, b):
-            raise AssertionError(f'GPU build {name} differs from the CPU build')
-    if gpu[4] != cpu[4]:
-        raise AssertionError('GPU build record_ids differ from the CPU build')
+        before = read_launches()
+        t0 = time.perf_counter()
+        graph, offsets, ids = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True)
+        t_multi = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in read_launches().items()}
+        check_no_sync(paths, devices)
+    _assert_same_build('GPU build vs CPU build', gpu, cpu)
     log(f'[cpu-vs-gpu] 8 x 1 Mbp: byte-equal kmers={len(gpu[0])} nodes={len(gpu[1])} '
         f'edges={len(gpu[2])} (gpu {t_gpu:.2f} s, cpu {t_cpu:.2f} s)')
+    kmers, edges = graph.materialize()
+    _assert_same_build('multi-device vs single-device build',
+                       (kmers, graph.nodes, edges, offsets, ids), gpu)
+    want = {'phase1_z': 0, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}
+    if grew != want or not graph.n_chunks:
+        raise AssertionError(f'multi-device launches {grew}, expected {want}')
+    log(f'[multi-vs-single] 8 x 1 Mbp over {len(devices)} shards {[str(d) for d in devices]}: '
+        f'byte-equal to the single-device build; launches {grew} '
+        f'({graph.n_chunks} shards with bases) in {t_multi:.2f} s')
 
 
-def main_path(paths, targets):
-    """build_deferred + the pipeline's device consumption without mash:
-    host float64 threshold, edge filter, kept-k-mer compaction."""
+def main_path(build_fn, paths, targets):
+    """A deferred build (``build_fn``) + the pipeline's device consumption
+    without mash: host float64 threshold, edge filter, kept-k-mer
+    compaction."""
     import torch
 
-    from seqwin_tpu_torch.graph import build_deferred, kept_node_layout
+    from seqwin_tpu_torch.graph import kept_node_layout
 
     t0 = time.perf_counter()
-    graph, offsets, record_ids = build_deferred(paths, K, W, targets, n_cpu=8)
+    graph, offsets, record_ids = build_fn(paths, targets)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     nodes = graph.nodes
@@ -257,37 +417,8 @@ def main_path(paths, targets):
                 edge_weight_th=float(edge_weight_th))
 
 
-def phase_main(seed: int, profile: bool, card: str) -> dict:
-    import torch
-
-    from seqwin_tpu_torch.engine.phase1 import phase1_z
-
-    n_genomes, genome_len = 64, 3_000_000
-    rng = np.random.default_rng(seed + 2)
-    with tempfile.TemporaryDirectory() as td:
-        t0 = time.perf_counter()
-        paths, targets = synth(Path(td), n_genomes, genome_len, rng)
-        log(f'[main] datagen {time.perf_counter() - t0:.1f} s ({n_genomes} x {genome_len} bp)')
-        launches = {'phase1_z': 0}
-        phase1_z.launches = 0
-        run = main_path(paths, targets)
-        launches['phase1_z'] = phase1_z.launches
-        second = main_path(paths, targets)
-        if profile:
-            from torch.profiler import ProfilerActivity, profile as tprof
-
-            with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                main_path(paths, targets)
-            avg = prof.key_averages()
-            log(avg.table(sort_by='cuda_time_total', row_limit=15))
-            # a span with device work inside also has a device-side entry
-            # of the same name and no CPU time: keep the CPU one
-            spans = {name: max((dict(calls=e.count, cpu_ms=e.cpu_time_total / 1e3)
-                                for e in avg if e.key == name),
-                               key=lambda d: d['cpu_ms'], default=None)
-                     for name in ('hybrid.host_prep', 'build.aggregate')}
-            log('[profile] host spans ' + json.dumps(spans))
-
+def check_main_run(run):
+    """Output invariants of one main-path run."""
     nodes, edges, kmers, graph = run['nodes'], run['edges'], run['kmers'], run['graph']
     h = nodes['hash']
     if not np.all(h[1:] > h[:-1]):
@@ -304,30 +435,99 @@ def phase_main(seed: int, profile: bool, card: str) -> dict:
         raise AssertionError('kept k-mer count differs from the node layout total')
     if not (len(edges) and len(kmers)):
         raise AssertionError('empty filtered graph')
-    chunks = graph.n_chunks
-    if launches['phase1_z'] != chunks:
-        raise AssertionError(f"phase1_z launched {launches['phase1_z']} times for {chunks} chunks")
-    res = dict(secs=run['secs'], secs_second=second['secs'], build_s=run['build_s'],
-               build_s_second=second['build_s'], bases=n_genomes * genome_len,
-               minimizers=graph.n_kmers, nodes=graph.n_nodes, edges=graph.n_edges,
-               kept_edges=len(edges), kept_kmers=len(kmers),
-               launches=launches, penalty_th=run['penalty_th'],
-               edge_weight_th=run['edge_weight_th'], chunks=chunks)
-    res['minimizers_per_s'] = graph.n_kmers / second['secs']
-    log(f"[main] 192 Mbp k={K} w={W}: {run['secs']:.2f} s first run, "
-        f"{second['secs']:.2f} s second (build_deferred {second['build_s']:.2f} s); "
-        f"{res['minimizers_per_s']:.4g} minimizers/s; minimizers={graph.n_kmers} "
-        f"nodes={graph.n_nodes} edges={graph.n_edges} kept_edges={len(edges)} "
-        f"kept_kmers={len(kmers)} chunks={chunks} launches={launches}; "
-        f"on {card}")
-    return res
+    return full_edges
+
+
+def profile_run(build_fn, paths, targets, spans):
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        main_path(build_fn, paths, targets)
+    avg = prof.key_averages()
+    log(avg.table(sort_by='cuda_time_total', row_limit=15))
+    # a span with device work inside also has a device-side entry of the
+    # same name and no CPU time: keep the CPU one
+    found = {name: max((dict(calls=e.count, cpu_ms=e.cpu_time_total / 1e3)
+                        for e in avg if e.key == name),
+                       key=lambda d: d['cpu_ms'], default=None)
+             for name in spans}
+    log('[profile] host spans ' + json.dumps(found))
+
+
+def main_data(td: Path, seed: int):
+    """The 192 Mbp main-path dataset: 64 genomes x 3 Mbp, one record each."""
+    t0 = time.perf_counter()
+    paths, targets = synth(td, MAIN_GENOMES, MAIN_LEN, np.random.default_rng(seed + 2))
+    log(f'[main] datagen {time.perf_counter() - t0:.1f} s ({MAIN_GENOMES} x {MAIN_LEN} bp)')
+    return paths, targets
+
+
+def phase_main(paths, targets, profile: bool, card: str, devices) -> dict:
+    """The 192 Mbp main path, single-device and multi-device over
+    ``devices``; each run is driven with every launch count at 0 and read
+    just after."""
+    from seqwin_tpu_torch.graph import build_deferred
+    from seqwin_tpu_torch.parallel import build_distributed
+
+    def single(paths, targets):
+        return build_deferred(paths, K, W, targets, n_cpu=8)
+
+    def multi(paths, targets):
+        return build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True)
+
+    res = {}
+    for label, fn, spans in (
+            ('single', single, ('hybrid.host_prep', 'build.aggregate')),
+            ('multi', multi, ('hybrid.host_prep', 'distributed.prepass',
+                              'distributed.step', 'distributed.merge'))):
+        reset_launches()
+        run = main_path(fn, paths, targets)
+        launches = read_launches()
+        second = main_path(fn, paths, targets)
+        if profile:
+            profile_run(fn, paths, targets, spans)
+        res[label] = dict(run=run, second=second, launches=launches)
+
+    out = {}
+    for label, r in res.items():
+        run, second, launches = r['run'], r['second'], r['launches']
+        graph = run['graph']
+        full_edges = check_main_run(run)
+        chunks = graph.n_chunks
+        want = ({'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0} if label == 'single'
+                else {'phase1_z': 0, 'phase1_zc': chunks, 'phase1_pfx': chunks})
+        if launches != want or not chunks:
+            raise AssertionError(f'{label} main path launches {launches}, expected {want}')
+        out[label] = dict(
+            secs=run['secs'], secs_second=second['secs'], build_s=run['build_s'],
+            build_s_second=second['build_s'], bases=MAIN_GENOMES * MAIN_LEN,
+            minimizers=graph.n_kmers, nodes=graph.n_nodes, edges=graph.n_edges,
+            kept_edges=len(run['edges']), kept_kmers=len(run['kmers']),
+            launches=launches, penalty_th=run['penalty_th'],
+            edge_weight_th=run['edge_weight_th'], chunks=chunks,
+            minimizers_per_s=graph.n_kmers / second['secs'], full_edges=full_edges)
+        shards = f' over {[str(d) for d in devices]}' if label == 'multi' else ''
+        log(f"[main] {label}{shards} 192 Mbp k={K} w={W}: {run['secs']:.2f} s first run, "
+            f"{second['secs']:.2f} s second (build {second['build_s']:.2f} s); "
+            f"{out[label]['minimizers_per_s']:.4g} minimizers/s; minimizers={graph.n_kmers} "
+            f"nodes={graph.n_nodes} edges={graph.n_edges} kept_edges={len(run['edges'])} "
+            f"kept_kmers={len(run['kmers'])} chunks={chunks} launches={launches}; on {card}")
+    s_run, m_run = res['single']['run'], res['multi']['run']
+    if not (np.array_equal(s_run['nodes'], m_run['nodes'])
+            and np.array_equal(out['single'].pop('full_edges'), out['multi'].pop('full_edges'))
+            and np.array_equal(s_run['edges'], m_run['edges'])
+            and np.array_equal(s_run['kmers'], m_run['kmers'])):
+        raise AssertionError('multi-device 192 Mbp main path differs from the single-device one')
+    log('[main] multi-device nodes, edges, filtered edges and kept k-mers equal the '
+        'single-device run')
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--profile', action='store_true',
-                    help='trace one more main-path run with torch.profiler')
+                    help='trace one more run of each main path with torch.profiler')
     args = ap.parse_args()
 
     import torch
@@ -344,13 +544,20 @@ def main() -> int:
 
     name = torch.cuda.get_device_name(0)
     card = smi()
-    log(f'[env] {name}; torch {torch.__version__} cuda {torch.version.cuda}; {card}')
+    devices = shard_devices()
+    log(f'[env] {name} x{torch.cuda.device_count()}; torch {torch.__version__} '
+        f'cuda {torch.version.cuda}; {card}; shards D = {[str(d) for d in devices]} '
+        f"({'one card repeated' if len(set(devices)) == 1 else 'distinct cards'})")
     phase_build()
-    kernel = phase_kernels(args.seed)
-    phase_cpu_vs_gpu(args.seed)
-    main_res = phase_main(args.seed, args.profile, card)
-    kernel['launches'] = main_res['launches'][kernel['name']]
-    log(json.dumps({'kernels': [kernel]}))
+    with tempfile.TemporaryDirectory() as td:
+        paths, targets = main_data(Path(td), args.seed)
+        kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
+        phase_small(args.seed, devices)
+        main_res = phase_main(paths, targets, args.profile, card, devices)
+    for kern in kernels:
+        path = 'single' if kern['name'] == 'phase1_z' else 'multi'
+        kern['launches'] = main_res[path]['launches'][kern['name']]
+    log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}), flush=True)

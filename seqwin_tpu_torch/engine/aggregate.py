@@ -1,7 +1,8 @@
 """Graph aggregation: minimizer stream -> nodes / edges / grouped k-mers.
 
 Counterpart: `seqwin_tpu/engine/aggregate.py` (`_compact_chunks`,
-`_merge_nodes`, `_merge_edges` hash-key route, `_extract_ascending`, the
+`_merge_nodes`, `_merge_edges` hash-key route, `_extract_ascending`,
+`parallel/distributed.py::_reduce_edges`, the
 edge filter and k-mer compaction gathers, `DeviceGraph`, `HostGraph`,
 `aggregate_device`, `aggregate`). Output contract:
 
@@ -78,20 +79,27 @@ def _merge_nodes(oh, pos, rec, asm, is_target):
     return s_pos, s_rec, s_oh[starts], starts, stops, n_tar, n_neg
 
 
+def _reduce_edges(u, v, asm):
+    """Edge reduction of canonical pairs (u <= v unsigned): distinct (u, v)
+    with weight = number of distinct assemblies, sorted by (first, second)
+    unsigned. Shared by the single-device merge and the multi-device owner
+    merge."""
+    perm = _lex_argsort(u64.key(u), u64.key(v), asm)
+    t_u, t_v, t_a = u[perm], v[perm], asm[perm]
+    new_edge = _changes(t_u) | _changes(t_v)
+    new_triple = new_edge | _changes(t_a)
+    starts = _extract_ascending(new_edge)
+    stops = torch.cat([starts[1:], torch.full((1,), t_u.numel(), device=u.device)])
+    return t_u[starts], t_v[starts], _segment_sums(new_triple, starts, stops)
+
+
 def _merge_edges(oh, rec, asm):
     """Canonicalised adjacent-pair edges with per-assembly dedup.
 
     Returns (first, second, weight), sorted by (first, second) unsigned."""
     adj = rec[:-1] == rec[1:]
-    a, b, asm_l = oh[:-1][adj], oh[1:][adj], asm[:-1][adj]
-    u, v = u64.umin(a, b), u64.umax(a, b)
-    perm = _lex_argsort(u64.key(u), u64.key(v), asm_l)
-    t_u, t_v, t_a = u[perm], v[perm], asm_l[perm]
-    new_edge = _changes(t_u) | _changes(t_v)
-    new_triple = new_edge | _changes(t_a)
-    starts = _extract_ascending(new_edge)
-    stops = torch.cat([starts[1:], torch.full((1,), t_u.numel(), device=oh.device)])
-    return t_u[starts], t_v[starts], _segment_sums(new_triple, starts, stops)
+    a, b = oh[:-1][adj], oh[1:][adj]
+    return _reduce_edges(u64.umin(a, b), u64.umax(a, b), asm[:-1][adj])
 
 
 def _kmers_host(pos: torch.Tensor, rec: torch.Tensor) -> np.ndarray:
@@ -99,6 +107,17 @@ def _kmers_host(pos: torch.Tensor, rec: torch.Tensor) -> np.ndarray:
     kmers['pos'] = pos.cpu().numpy()
     kmers['record_idx'] = rec.cpu().numpy()
     return kmers
+
+
+def _nodes_host(node_hash, starts, stops, n_tar, n_neg, base: int = 0) -> np.ndarray:
+    """NODE_DTYPE array; k-mer ranges shifted by ``base``."""
+    nodes = np.zeros(node_hash.numel(), dtype=NODE_DTYPE)
+    nodes['hash'] = u64.to_numpy(node_hash)
+    nodes['start'] = starts.cpu().numpy() + base
+    nodes['stop'] = stops.cpu().numpy() + base
+    nodes['n_tar'] = n_tar.cpu().numpy()
+    nodes['n_neg'] = n_neg.cpu().numpy()
+    return nodes
 
 
 def _edges_host(first: torch.Tensor, second: torch.Tensor, weight: torch.Tensor) -> np.ndarray:
@@ -226,12 +245,7 @@ def aggregate_device(chunks, is_target: np.ndarray, defer: bool = False):
     tmask = torch.from_numpy(np.asarray(is_target, dtype=bool)).to(oh.device)
     s_pos, s_rec, node_hash, n_starts, n_stops, n_tar, n_neg = _merge_nodes(
         oh, pos, rec, asm, tmask)
-    nodes = np.zeros(node_hash.numel(), dtype=NODE_DTYPE)
-    nodes['hash'] = u64.to_numpy(node_hash)
-    nodes['start'] = n_starts.cpu().numpy()
-    nodes['stop'] = n_stops.cpu().numpy()
-    nodes['n_tar'] = n_tar.cpu().numpy()
-    nodes['n_neg'] = n_neg.cpu().numpy()
+    nodes = _nodes_host(node_hash, n_starts, n_stops, n_tar, n_neg)
     e_first, e_second, e_weight = _merge_edges(oh, rec, asm)
     graph = DeviceGraph(nodes, s_pos, s_rec, n_starts, n_stops,
                         e_first, e_second, e_weight, n_chunks=n_chunks)

@@ -19,6 +19,12 @@ Counterpart: `seqwin_tpu/engine/hybrid.py`. The host prep is copied as-is
 
 The port sizes each chunk's stream to the chunk itself and ships the
 augmented byte stream (bit 6 = record start) as it is.
+
+Two extractions, chosen by path: the single-device build takes the exact
+mask extraction (`scan_chunk_device`); the multi-device build, which knows
+every shard's exact counts from its pre-pass, takes the pfx extraction
+(`scan_phase2_pfx` over kernel B3's tile staircases, counterpart of the JAX
+`scan_phase2_pfx`), which needs no host sync to size its outputs.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..ops import u64
 from ..ops.hashing import MULTISHIFT, out_hash_mult
-from .phase1 import phase1_z, rot_seed_tables
+from .phase1 import _shift_right, pfx_from_z, phase1_z, rot_seed_tables  # noqa: F401
 
 
 def _host_layout(record_codes: list[np.ndarray], n: int, offset: int = 0):
@@ -288,27 +294,35 @@ def _asm_table(record_offsets, rec_base: int, n_records: int, cap: int) -> np.nd
     return tab
 
 
-_EMIT_ROW = 1 << 13  # row width of the blocked emission scan
+_EMIT_ROW = 1 << 13  # row width of the blocked running max
+
+
+def _cummax_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max of a 1-D stream, evaluated row-blocked as
+    `_emission_rows` does in the JAX package: a per-row cummax plus one
+    exclusive cummax over the row maxima. On a CUDA device torch scans each
+    row in one block, so a single 2^25-long row takes ~80 ms where rows of
+    2^13 take a small fraction."""
+    n = x.numel()
+    pad = (-n) % _EMIT_ROW
+    if pad:  # trailing padding never reaches an earlier running max
+        x = torch.cat([x, x.new_zeros(pad)])
+    cm = torch.cummax(x.view(-1, _EMIT_ROW), 1).values
+    low = torch.full((1,), torch.iinfo(x.dtype).min, dtype=x.dtype, device=x.device)
+    carry = torch.cat([low, torch.cummax(cm[:, -1], 0).values[:-1]])
+    return torch.maximum(cm, carry[:, None]).view(-1)[:n]
+
+
+def _emission_mask(z: torch.Tensor) -> torch.Tensor:
+    """Emission flags of a (patched) z stream: z >= 0 and z strictly above
+    the running max of all earlier z (starting from -2)."""
+    before = _shift_right(_cummax_rows(z), 1, -2)
+    return (z >= 0) & (z > before)
 
 
 def _emission(z: torch.Tensor) -> torch.Tensor:
-    """Emitted values of a (patched) z stream, in stream order: z >= 0 and z
-    strictly above the running max of all earlier z (starting from -2).
-
-    The running max is evaluated row-blocked, as `_emission_rows` does in
-    the JAX package: a per-row cummax plus one exclusive cummax over the row
-    maxima. On a CUDA device torch scans each row in one block, so a single
-    2^25-long row takes ~80 ms where rows of 2^13 take a small fraction."""
-    n = z.numel()
-    pad = (-n) % _EMIT_ROW
-    if pad:
-        z = torch.cat([z, torch.full((pad,), -1, dtype=z.dtype, device=z.device)])
-    zr = z.view(-1, _EMIT_ROW)
-    cm = torch.cummax(zr, 1).values
-    first = torch.full((zr.shape[0], 1), -2, dtype=z.dtype, device=z.device)
-    before = torch.cat([first, cm[:, :-1]], 1)
-    carry = torch.cat([first[:1, 0], torch.cummax(cm[:, -1], 0).values[:-1]])
-    return zr[(zr >= 0) & (zr > before) & (zr > carry[:, None])]
+    """Emitted values of a (patched) z stream, in stream order."""
+    return z[_emission_mask(z)]
 
 
 def _canon_at_emitted(codes_aug: torch.Tensor, eidx: torch.Tensor, k: int) -> torch.Tensor:
@@ -325,6 +339,37 @@ def _canon_at_emitted(codes_aug: torch.Tensor, eidx: torch.Tensor, k: int) -> to
     return f + r
 
 
+def out_hash(canon: torch.Tensor, k: int) -> torch.Tensor:
+    """The out-hash of canonical hashes (int64 bit patterns both)."""
+    t = canon * u64.as_signed(out_hash_mult(k))
+    return t ^ u64.shr(t, MULTISHIFT)
+
+
+def chunk_host_prep(record_codes: list[np.ndarray], k: int, w: int,
+                    rec_base: int = 0, record_offsets=None):
+    """Host prep of one stream of whole records: the augmented byte stream
+    (bit 6 = record start), record starts, the irregular-window patches and
+    the local record -> assembly table."""
+    with record_function('hybrid.host_prep'):
+        total = int(sum(len(c) for c in record_codes))
+        codes, starts = _host_layout(record_codes, total)
+        # empty records share their start with the next record (or sit at total)
+        codes[starts[starts < total]] |= 64
+        irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes)
+        asm_tab = _asm_table(record_offsets, rec_base, len(starts), len(starts))
+    return codes, starts, irr_pos, patch_z, asm_tab
+
+
+def _emitted_streams(codes_d, eidx, k: int, starts_d, rec_base: int, asm_tab_d):
+    """(e_oh, e_pos, e_rec, e_asm) of the emitted positions ``eidx``."""
+    e_oh = out_hash(_canon_at_emitted(codes_d, eidx, k), k)
+    # over ALL starts (duplicates included): right-searchsorted picks the
+    # last record starting at or before the position -- the non-empty one
+    rec_local = (torch.searchsorted(starts_d, eidx, right=True) - 1).clamp_(0, starts_d.numel() - 1)
+    e_pos = eidx - starts_d[rec_local]
+    return e_oh, e_pos, rec_local + rec_base, asm_tab_d.long()[rec_local]
+
+
 def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
                       rec_base: int = 0, record_offsets=None, device=None):
     """Scan one chunk on ``device``; emitted minimizers stay device-resident.
@@ -336,31 +381,126 @@ def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
     ``record_offsets`` is given (else zeros).
     """
     dev = resolve_device(device)
-    total = int(sum(len(c) for c in record_codes))
-    if total == 0:
+    if sum(len(c) for c in record_codes) == 0:
         return None, None, None, 0, None
-
-    with record_function('hybrid.host_prep'):
-        codes, starts = _host_layout(record_codes, total)
-        # empty records share their start with the next record (or sit at total)
-        codes[starts[starts < total]] |= 64
-        irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes)
-        asm_tab = _asm_table(record_offsets, rec_base, len(starts), len(starts))
+    codes, starts, irr_pos, patch_z, asm_tab = chunk_host_prep(
+        record_codes, k, w, rec_base, record_offsets)
 
     codes_d = torch.from_numpy(codes).to(dev)
     z = phase1_z(codes_d, k, w)
     if len(irr_pos):
         z[torch.from_numpy(irr_pos).to(dev).long()] = torch.from_numpy(patch_z).to(dev)
     eidx = _emission(z).long()
-    count = int(eidx.numel())
+    e_oh, e_pos, e_rec, e_asm = _emitted_streams(
+        codes_d, eidx, k, torch.from_numpy(starts).to(dev), rec_base,
+        torch.from_numpy(asm_tab).to(dev))
+    return e_oh, e_pos, e_rec, int(eidx.numel()), e_asm
 
-    t = _canon_at_emitted(codes_d, eidx, k) * u64.as_signed(out_hash_mult(k))
-    e_oh = t ^ u64.shr(t, MULTISHIFT)
-    starts_d = torch.from_numpy(starts).to(dev)
-    # over ALL starts (duplicates included): right-searchsorted picks the
-    # last record starting at or before the position -- the non-empty one
-    rec_local = (torch.searchsorted(starts_d, eidx, right=True) - 1).clamp_(0, len(starts) - 1)
-    e_pos = eidx - starts_d[rec_local]
-    e_rec = rec_local + rec_base
-    e_asm = torch.from_numpy(asm_tab).to(dev).long()[rec_local]
-    return e_oh, e_pos, e_rec, count, e_asm
+
+def _bsearch_rows(flat, row, tgt, ts: int, side_left: bool):
+    """First in-row index where flat[row*ts + idx] >= tgt (side_left) or
+    > tgt (not side_left); rows gathered point-wise (no [Q, ts] slices)."""
+    lo = torch.zeros_like(row)
+    hi = torch.full_like(row, ts)
+    base = row * ts
+    for _ in range(max(1, ts.bit_length())):
+        mid = (lo + hi) >> 1
+        v = flat[base + mid.clamp(max=ts - 1)]
+        go = ((v < tgt) if side_left else (v <= tgt)) & (mid < hi)
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(go, hi, mid)
+    return lo
+
+
+_FAR = 1 << 62  # past every stream position
+
+
+def scan_phase2_pfx(zpfx, lrank, codes_aug, patch_pos, patch_z, starts,
+                    rec_base: int, asm_tab, emit_cap: int, count: int, k: int):
+    """Emission extraction from kernel B3's tile staircases (the pfx route):
+    no stream-wide scan, only tile-count, patch-count and emit_cap scale
+    gathers, binary searches and scans.
+
+    The window-argmin sequence of one stream is a monotone staircase, so
+    emissions are its distinct values. Across tiles the carry is an
+    exclusive max over the tile maxima, and the emissions a tile re-climbs
+    below the carry are a prefix of its local ones (K_t, one binary search
+    per tile). The host patches form their own staircase; each side
+    suppresses the other's non-advances and output slots come from rank
+    arithmetic over the two monotone lists.
+
+    ``emit_cap`` must cover the clean-only emission count (the suppression
+    bookkeeping only tracks the first emit_cap clean emissions), and
+    ``count`` (<= emit_cap) is the exact emission count, both from the
+    count pre-pass. Returns (e_oh, e_pos, e_rec, dev_count, e_asm): streams
+    of exactly ``count`` entries, and the device's own count (a 0-d tensor;
+    above emit_cap when the clean count overflows it), which the caller
+    holds against ``count``.
+    """
+    dev = zpfx.device
+    T, ts = zpfx.shape
+    zp, lr = zpfx.reshape(-1).long(), lrank.reshape(-1).long()
+    # one sentinel patch past every emission keeps the patch arrays non-empty
+    patch_pos = torch.cat([patch_pos.long(), torch.full((1,), codes_aug.numel(), device=dev)])
+    patch_z = torch.cat([patch_z.long(), torch.full((1,), -1, device=dev)])
+    pcap = patch_pos.numel()
+
+    # --- cross-tile carry + per-tile double-count correction K_t ---
+    tile_max = zp.view(T, ts)[:, -1]
+    carry = _shift_right(torch.cummax(tile_max, 0).values, 1, -1)
+    rows = torch.arange(T, device=dev)
+    q = _bsearch_rows(zp, rows, carry, ts, side_left=False) - 1
+    K = torch.where(q >= 0, lr[rows * ts + q.clamp(min=0)], 0)
+    surv = lr.view(T, ts)[:, -1] - K
+    cum = torch.cumsum(surv, 0)
+    count_g = cum[-1]
+
+    # --- the j-th clean emission: tile, in-tile rank target, position ---
+    j = torch.arange(emit_cap, device=dev)
+    t_c = torch.searchsorted(cum, j, right=True).clamp(max=T - 1)
+    tgt = j - (cum[t_c] - surv[t_c]) + K[t_c] + 1
+    pos_in = _bsearch_rows(lr, t_c, tgt, ts, side_left=True)
+    gv = zp[t_c * ts + pos_in.clamp(max=ts - 1)]  # emitted value (min pos)
+    live_g = j < torch.clamp(count_g, max=emit_cap)
+    gp = torch.where(live_g, t_c * ts + pos_in, _FAR)
+
+    # --- patch staircase (values of host-patched irregular windows) ---
+    pm = torch.cummax(patch_z, 0).values
+    qp = patch_pos.clamp(0, T * ts - 1)
+    g_at = torch.maximum(zp[qp], carry[qp // ts])  # clean prefix at q
+    flag_p = ((pm > _shift_right(pm, 1, -1)) & (pm > g_at)
+              & (patch_pos < T * ts) & (patch_z >= 0))
+    pfs = torch.cumsum(flag_p.long(), 0)
+    count_p = pfs[-1]
+
+    # --- cross-suppression + merge ranks (all monotone-list arithmetic) ---
+    jq = torch.searchsorted(patch_pos, gp)
+    pmq = torch.where(jq > 0, pm[(jq - 1).clamp(min=0)], -1)
+    sup_g = live_g & (pmq >= gv)
+    surv_ord = torch.cumsum((live_g & ~sup_g).long(), 0)  # inclusive
+    # nsup[i]: suppressed among the first i clean emissions
+    nsup = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(sup_g.long(), 0)])
+    # patch ranks: #surviving G with position < q, + own survivor ordinal
+    m_g = torch.searchsorted(gp, patch_pos)
+    rank_p = pfs - 1 + m_g - nsup[m_g]
+    dev_count = count_g - nsup[-1] + count_p
+    # the bookkeeping above only covers the first emit_cap CLEAN emissions:
+    # a clean overflow must not let suppressions pull the count back under
+    dev_count = torch.where(count_g > emit_cap,
+                            torch.clamp(dev_count, min=emit_cap + 1), dev_count)
+
+    # --- resolve the `count` output slots ---
+    r = torch.arange(count, device=dev)
+    # patch survivors by ordinal: strictly increasing final ranks
+    ordp = torch.searchsorted(pfs, torch.arange(pcap, device=dev) + 1).clamp(max=pcap - 1)
+    prank_ord = torch.where(torch.arange(pcap, device=dev) < count_p, rank_p[ordp], _FAR)
+    pu = torch.searchsorted(prank_ord, r)
+    pu_c = pu.clamp(max=pcap - 1)
+    is_p = (pu < pcap) & (prank_ord[pu_c] == r)
+    # G survivor with ordinal (r - #patch survivors ranked below r)
+    gj = torch.searchsorted(surv_ord, r - pu + 1).clamp(max=max(emit_cap - 1, 0))
+    eidx = torch.where(is_p, pm[ordp[pu_c]], gv[gj])
+
+    e_oh, e_pos, e_rec, e_asm = _emitted_streams(codes_aug, eidx, k, starts, rec_base, asm_tab)
+    return e_oh, e_pos, e_rec, dev_count, e_asm

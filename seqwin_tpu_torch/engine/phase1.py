@@ -1,9 +1,11 @@
 """Phase 1 of the minimizer scan: per-position clean-window argmin z.
 
-Counterparts: `seqwin_tpu/engine/hybrid.py::scan_phase1` (with_hashes=False)
-for the plain torch version, and the Pallas kernel
-`seqwin_tpu/engine/pallas_scan.py::_make_kernel` (z mode) for the CUDA kernel
-`csrc/phase1_z.cu`. Helpers folded in from `seqwin_tpu/engine/minimizer.py`.
+Counterparts: `seqwin_tpu/engine/hybrid.py::scan_phase1` and `pfx_from_z`
+for the plain torch versions, and the Pallas kernel
+`seqwin_tpu/engine/pallas_scan.py::_make_kernel` for the CUDA kernels of
+`csrc/phase1.cu`, one wrapper per mode: `phase1_z` (B1, z mode),
+`phase1_zc` (B2, `with_hashes=True`), `phase1_pfx` (B3, `out_mode='pfx'`).
+Helpers folded in from `seqwin_tpu/engine/minimizer.py`.
 
 Input: uint8[n], bits 0..5 the base code (0..3 valid), bit 6 the record-start
 flag; positions outside the stream behave as padding (255). Output: int32[n],
@@ -89,8 +91,8 @@ def _combine_rmin(lmh, lidx, rmh, ridx):
     return torch.where(take_r, rmh, lmh), torch.where(take_r, ridx, lidx)
 
 
-def phase1_z_plain(codes_aug: torch.Tensor, k: int, w: int) -> torch.Tensor:
-    """Plain torch phase 1 (the CPU path and the kernel's oracle)."""
+def _phase1_plain(codes_aug: torch.Tensor, k: int, w: int):
+    """Plain torch phase 1: (z int32[n], canon int64[n], valid bool[n])."""
     n = codes_aug.numel()
     dev = codes_aug.device
     iota = torch.arange(n, dtype=torch.int64, device=dev)
@@ -129,7 +131,35 @@ def phase1_z_plain(codes_aug: torch.Tensor, k: int, w: int) -> torch.Tensor:
         L *= 2
     if L < w:
         m, i = _combine_rmin(_shift_right(m, w - L, SENTINEL), _shift_right(i, w - L, -1), m, i)
-    return torch.where(clean & (m != SENTINEL), i, -1).to(torch.int32)
+    z = torch.where(clean & (m != SENTINEL), i, -1).to(torch.int32)
+    return z, canon, valid
+
+
+def phase1_z_plain(codes_aug: torch.Tensor, k: int, w: int) -> torch.Tensor:
+    """Plain torch phase 1 (the CPU path and kernel B1's oracle)."""
+    return _phase1_plain(codes_aug, k, w)[0]
+
+
+def phase1_zc_plain(codes_aug: torch.Tensor, k: int, w: int):
+    """Plain torch phase 1 with hashes (the CPU path and kernel B2's
+    oracle): (z int32[n], canon int64[n]), canon 0 where the k-mer is not
+    valid (only valid positions are part of the contract)."""
+    z, canon, valid = _phase1_plain(codes_aug, k, w)
+    return z, torch.where(valid, canon, 0)
+
+
+def pfx_from_z(z: torch.Tensor, ts: int):
+    """Tile-grid inclusive prefix-max of z and tile-local increase counts,
+    int32[T, ts] each (kernel B3's outputs, and its oracle). The prefix-max
+    restarts at every tile; the tail tile is padded with -1."""
+    pad = (-z.numel()) % ts
+    if pad:
+        z = torch.cat([z, torch.full((pad,), -1, dtype=z.dtype, device=z.device)])
+    zt = z.view(-1, ts)
+    zpfx = torch.cummax(zt, 1).values
+    prev = torch.cat([torch.full_like(zpfx[:, :1], -1), zpfx[:, :-1]], 1)
+    lrank = torch.cumsum((zpfx > prev).to(torch.int32), 1, dtype=torch.int32)
+    return zpfx, lrank
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,8 +175,9 @@ def rot_seed_tables(k: int, device: torch.device) -> torch.Tensor:
     return torch.tensor([fwd, rev], dtype=torch.int64, device=device)
 
 
-_TILE = 2048            # output positions per CTA
+_TILE = 2048            # output positions per CTA (a multiple of 256 for B3)
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
+_MODES = {'phase1_z': 0, 'phase1_zc': 1, 'phase1_pfx': 2}
 
 
 @functools.cache
@@ -154,52 +185,91 @@ def _lib() -> ctypes.CDLL:
     """The built and loaded kernel library (nvcc runs on the first call)."""
     from ._kernels import load
 
-    lib = load('phase1_z')
-    lib.phase1_z_smem_bytes.restype = ctypes.c_longlong
-    lib.phase1_z_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.phase1_z_launch.restype = ctypes.c_int
-    lib.phase1_z_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib = load('phase1')
+    lib.phase1_smem_bytes.restype = ctypes.c_longlong
+    lib.phase1_smem_bytes.argtypes = [ctypes.c_int] * 4
+    head = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+    for name, n_out in (('phase1_z', 1), ('phase1_zc', 2), ('phase1_pfx', 2)):
+        fn = getattr(lib, f'{name}_launch')
+        fn.restype = ctypes.c_int
+        fn.argtypes = head + [ctypes.c_void_p] * (n_out + 1)
     return lib
 
 
-def _launch(codes_aug: torch.Tensor, k: int, w: int) -> torch.Tensor:
+def _launch(name: str, codes_aug: torch.Tensor, k: int, w: int, *outs: torch.Tensor) -> None:
     lib = _lib()
-    smem = lib.phase1_z_smem_bytes(k, w, _TILE)
+    smem = lib.phase1_smem_bytes(k, w, _TILE, _MODES[name])
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f'phase1_z: k={k}, w={w} needs {smem} B of shared memory per '
+            f'{name}: k={k}, w={w} needs {smem} B of shared memory per '
             f'block (limit {_SMEM_LIMIT})')
     dev = codes_aug.device
     tabs = rot_seed_tables(k, dev)
-    n = codes_aug.numel()
-    z = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phase1_z_launch(codes_aug.data_ptr(), n, k, w, _TILE,
-                                  tabs.data_ptr(), z.data_ptr(), stream)
+        err = getattr(lib, f'{name}_launch')(
+            codes_aug.data_ptr(), codes_aug.numel(), k, w, _TILE, tabs.data_ptr(),
+            *(o.data_ptr() for o in outs), stream)
     if err:
-        raise RuntimeError(f'phase1_z launch failed: CUDA error {err}')
-    return z
+        raise RuntimeError(f'{name} launch failed: CUDA error {err}')
+
+
+def _on_cpu(name: str, codes_aug: torch.Tensor, k: int, w: int) -> bool:
+    """Check the input; True for a CPU tensor (the plain version's route),
+    False for a CUDA tensor (the kernel's)."""
+    if codes_aug.dtype != torch.uint8 or codes_aug.dim() != 1:
+        raise TypeError(f'{name}: expected a 1-D uint8 tensor')
+    if not codes_aug.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')
+    if k < 1 or w < 1:
+        raise ValueError(f'{name}: k={k}, w={w} must be >= 1')
+    if codes_aug.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {codes_aug.device}')
+    return codes_aug.device.type == 'cpu'
 
 
 def phase1_z(codes_aug: torch.Tensor, k: int, w: int) -> torch.Tensor:
     """Phase-1 z stream. A CPU tensor takes the plain version; a CUDA tensor
-    launches the CUDA kernel (`csrc/phase1_z.cu`) or raises."""
-    if codes_aug.dtype != torch.uint8 or codes_aug.dim() != 1:
-        raise TypeError('phase1_z: expected a 1-D uint8 tensor')
-    if not codes_aug.is_contiguous():
-        raise ValueError('phase1_z: expected a contiguous tensor')
-    if k < 1 or w < 1:
-        raise ValueError(f'phase1_z: k={k}, w={w} must be >= 1')
-    if codes_aug.device.type == 'cpu':
+    launches kernel B1 (`csrc/phase1.cu`) or raises."""
+    if _on_cpu('phase1_z', codes_aug, k, w):
         return phase1_z_plain(codes_aug, k, w)
-    if codes_aug.device.type != 'cuda':
-        raise ValueError(f'phase1_z: unsupported device {codes_aug.device}')
-    z = _launch(codes_aug, k, w)
+    z = torch.empty(codes_aug.numel(), dtype=torch.int32, device=codes_aug.device)
+    _launch('phase1_z', codes_aug, k, w, z)
     phase1_z.launches += 1
     return z
 
 
+def phase1_zc(codes_aug: torch.Tensor, k: int, w: int):
+    """Phase-1 z stream and canonical hashes, (z int32[n], canon int64[n]).
+    A CPU tensor takes the plain version; a CUDA tensor launches kernel B2
+    (`csrc/phase1.cu`) or raises."""
+    if _on_cpu('phase1_zc', codes_aug, k, w):
+        return phase1_zc_plain(codes_aug, k, w)
+    n, dev = codes_aug.numel(), codes_aug.device
+    z = torch.empty(n, dtype=torch.int32, device=dev)
+    canon = torch.empty(n, dtype=torch.int64, device=dev)
+    _launch('phase1_zc', codes_aug, k, w, z, canon)
+    phase1_zc.launches += 1
+    return z, canon
+
+
+def phase1_pfx(codes_aug: torch.Tensor, k: int, w: int):
+    """Tile staircases of the phase-1 z stream, (zpfx, lrank int32[T, ts],
+    ts) with ts the kernel's tile. A CPU tensor takes the plain version
+    (`pfx_from_z` of `phase1_z_plain` at the same ts); a CUDA tensor launches
+    kernel B3 (`csrc/phase1.cu`) or raises."""
+    if _on_cpu('phase1_pfx', codes_aug, k, w):
+        return (*pfx_from_z(phase1_z_plain(codes_aug, k, w), _TILE), _TILE)
+    n, dev = codes_aug.numel(), codes_aug.device
+    T = -(-n // _TILE)
+    zpfx = torch.empty((T, _TILE), dtype=torch.int32, device=dev)
+    lrank = torch.empty((T, _TILE), dtype=torch.int32, device=dev)
+    _launch('phase1_pfx', codes_aug, k, w, zpfx, lrank)
+    phase1_pfx.launches += 1
+    return zpfx, lrank, _TILE
+
+
 phase1_z.launches = 0
+phase1_zc.launches = 0
+phase1_pfx.launches = 0

@@ -10,26 +10,30 @@ single-device path of `_build_impl`, `kept_node_layout`, `filter_kmers`).
 
 Records are packed into chunks of at most ``SEQWIN_TPU_TORCH_CHUNK_BASES``
 bases (default 2^25), in global scan order, so the output is the same for
-any chunking. Paths this slice does not port raise `NotImplementedError`
+any chunking. ``devices != 1`` takes the multi-device build
+(`parallel/distributed.py`) over that many cards of this host, with the
+same output. Paths this slice does not port raise `NotImplementedError`
 naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import logging
 import os
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterable
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..engine.aggregate import aggregate_device
 from ..engine.hybrid import scan_chunk_device
-from ..io.fasta import parse_fasta_codes
+from ..io.fasta import U32_MAX, iter_assemblies
+from ..parallel.distributed import build_distributed
 from .dtypes import KMER_DTYPE
 
-U32_MAX = (1 << 32) - 1
+logger = logging.getLogger(__name__)
 
 # Max bases per device scan call.
 DEFAULT_CHUNK_BASES = 1 << 25
@@ -47,7 +51,9 @@ def build(
     device=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, list[tuple[str, ...]]]:
     """Build a minimizer graph from assembly FASTA files on ``device``
-    (default: the GPU; raises when there is none).
+    (default: the GPU; raises when there is none). ``devices`` shards the
+    build over that many cards (0: all of them; capped at the cards
+    present); with ``device='cpu'`` the shards all run on the CPU.
 
     Returns:
         (kmers, nodes, edges, record_offsets, record_ids)
@@ -77,7 +83,9 @@ def build_deferred(
 ):
     """`build` variant returning (graph, record_offsets, record_ids) where
     ``graph`` keeps the k-mer stream and edges on the device
-    (`engine.aggregate.DeviceGraph`; ``graph.nodes`` is on the host)."""
+    (`engine.aggregate.DeviceGraph`; ``graph.nodes`` is on the host). The
+    multi-device build hands back host arrays in an
+    `engine.aggregate.HostGraph` of the same interface."""
     if keep_codes:
         raise NotImplementedError('keep_codes: ROADMAP queue A12 (device sketches)')
     return _build_impl(assembly_paths, kmerlen, windowsize, is_targets,
@@ -85,26 +93,46 @@ def build_deferred(
                        defer=True, devices=devices, device=device)
 
 
-def _check_supported(low_memory: bool, backend: str, devices: int) -> None:
+def _check_supported(low_memory: bool, backend: str) -> None:
     if backend in ('numpy', 'oracle'):
         raise NotImplementedError(f"backend={backend!r}: ROADMAP queue A10 (host-only backends)")
     if low_memory:
         raise NotImplementedError('low_memory: ROADMAP queue A8 (long records)')
-    if devices != 1:
-        raise NotImplementedError('devices != 1: ROADMAP queue A13 (multi-GPU)')
+    if os.environ.get('SEQWIN_TPU_MULTIHOST') is not None:
+        raise NotImplementedError('multi-host build: ROADMAP queue A13 (multi-host half)')
+
+
+def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
+    """The shards of a ``devices`` request, as the JAX package maps it onto
+    its mesh: 0 means every card, a request above the cards present takes
+    them all with a warning. On the CPU (``device='cpu'``) nothing caps the
+    count: ``devices`` shards on the CPU, one for 0."""
+    if dev.type == 'cpu':
+        return [dev] * max(1, int(devices))
+    n_avail = torch.cuda.device_count()
+    n_dev = n_avail if devices == 0 else min(int(devices), n_avail)
+    if devices > n_avail:
+        logger.warning(f'Requested {devices} devices but only {n_avail} are '
+                       f'available; using {n_dev}')
+    return [torch.device('cuda', i) for i in range(n_dev)]
 
 
 def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 n_cpu: int, low_memory: bool, backend: str, defer: bool,
                 devices: int = 1, device=None):
     dev = resolve_device(device)
-    _check_supported(low_memory, backend, devices)
+    _check_supported(low_memory, backend)
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
     if len(paths) != len(targets):
         raise ValueError('assembly_paths and is_targets must have the same length')
     if len(paths) > U32_MAX:
         raise ValueError('Number of input assemblies exceeds uint32 range')
+    if devices != 1:
+        shards = _shard_devices(devices, dev)
+        if len(shards) > 1:
+            return build_distributed(paths, kmerlen, windowsize, targets, shards,
+                                     n_cpu=n_cpu, defer=defer)
     chunk_budget = int(os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
 
     record_ids: list[tuple[str, ...]] = []
@@ -125,25 +153,19 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         chunk_codes, chunk_bases = [], 0
 
     # files parse in worker threads while earlier chunks scan
-    with ThreadPoolExecutor(max_workers=max(1, min(int(n_cpu), len(paths) or 1))) as ex:
-        for pi, (ids, codes_list) in enumerate(ex.map(parse_fasta_codes, paths)):
-            record_ids.append(tuple(ids))
-            record_offsets.append(record_offsets[-1] + len(ids))
-            if record_offsets[-1] > U32_MAX:
-                raise ValueError('Total number of FASTA records exceeds uint32 range')
-            for rid, codes in zip(ids, codes_list):
-                if len(codes) > U32_MAX:
-                    raise ValueError(
-                        f'Sequence length exceeds uint32 range for record {rid} in assembly {paths[pi]}')
-                if len(codes) > chunk_budget:
-                    raise NotImplementedError(
-                        f'record {rid} ({len(codes)} bases) exceeds the chunk budget '
-                        f'({chunk_budget}): ROADMAP queue A8 (long records)')
-                if chunk_bases + len(codes) > chunk_budget and chunk_codes:
-                    flush()
-                chunk_codes.append(codes)
-                chunk_bases += len(codes)
-        flush()
+    for ids, codes_list in iter_assemblies(paths, n_cpu):
+        record_ids.append(tuple(ids))
+        record_offsets.append(record_offsets[-1] + len(ids))
+        for rid, codes in zip(ids, codes_list):
+            if len(codes) > chunk_budget:
+                raise NotImplementedError(
+                    f'record {rid} ({len(codes)} bases) exceeds the chunk budget '
+                    f'({chunk_budget}): ROADMAP queue A8 (long records)')
+            if chunk_bases + len(codes) > chunk_budget and chunk_codes:
+                flush()
+            chunk_codes.append(codes)
+            chunk_bases += len(codes)
+    flush()
 
     offsets = np.array(record_offsets, dtype=np.uintp)
     with record_function('build.aggregate'):

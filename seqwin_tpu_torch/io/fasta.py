@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import gzip
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +28,7 @@ for _b in b' \t\n\r\f\v':
     _WS_BYTES[_b] = True
 
 GZIP_EXT = '.gz'
+U32_MAX = (1 << 32) - 1
 
 
 def _read_bytes(path: str | Path) -> bytes:
@@ -120,3 +122,19 @@ def parse_fasta_codes_py(path: str | Path) -> tuple[list[str], list[np.ndarray]]
         record_codes.append(CODE_TAB[seq_bytes])
 
     return record_ids, record_codes
+
+
+def iter_assemblies(paths: list[str], n_cpu: int):
+    """Yield (record ids, per-record base codes) of each assembly in order,
+    parsed in worker threads, after the uint32 range checks."""
+    n_records = 0
+    with ThreadPoolExecutor(max_workers=max(1, min(int(n_cpu), len(paths) or 1))) as ex:
+        for pi, (ids, codes_list) in enumerate(ex.map(parse_fasta_codes, paths)):
+            n_records += len(ids)
+            if n_records > U32_MAX:
+                raise ValueError('Total number of FASTA records exceeds uint32 range')
+            for rid, codes in zip(ids, codes_list):
+                if len(codes) > U32_MAX:
+                    raise ValueError(
+                        f'Sequence length exceeds uint32 range for record {rid} in assembly {paths[pi]}')
+            yield ids, codes_list

@@ -111,7 +111,7 @@ def test_deferred_compact_kmers_matches_jax(deferred, frac):
     (dict(low_memory=True), {}),
     (dict(backend='numpy'), {}),
     (dict(backend='oracle'), {}),
-    (dict(devices=2), {}),
+    (dict(devices=2, low_memory=True), {}),
     ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
 ])
 def test_unported_paths_raise(fastas, monkeypatch, kwargs, env):

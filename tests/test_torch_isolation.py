@@ -19,6 +19,7 @@ def test_import_leaves_jax_and_seqwin_tpu_out():
         'import seqwin_tpu_torch\n'
         'seqwin_tpu_torch.graph.build\n'
         'import seqwin_tpu_torch.engine.hybrid, seqwin_tpu_torch.engine.aggregate\n'
+        'import seqwin_tpu_torch.parallel.distributed\n'
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'seqwin_tpu')]\n"
         'print(bad)\n'
     )
