@@ -14,11 +14,15 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    from ``seqwin_tpu_torch/csrc``.
 2. Each kernel against its plain torch version on the card, on seeded
    streams with N runs, short and empty records and small-k tie cases over a
-   (k, w) grid, one 2^25-position chunk at k=21, w=200 (the single-device
-   path's chunk), and for B2 and B3 the first shard stream of the main path
-   over D (the multi-device path's input). Exact equality of every output
-   is required; both versions are timed with CUDA events on the main-path
-   input of each kernel and on the 2^25 chunk.
+   (k, w) grid, on tile-edge streams over the same grid and one w above the
+   kernel's tile (homopolymers, period-2..7 repeats, record starts and N
+   runs around tile and segment edges; at every byte alignment), one
+   2^25-position chunk at k=21, w=200 (the single-device path's chunk), and
+   for B2 and B3 the first shard stream of the main path over D (the
+   multi-device path's input). Exact equality of every output is
+   required; both versions are timed with CUDA events on the main-path
+   input of each kernel and on the 2^25 chunk, the kernel also with the L2
+   cache flushed before each launch.
 3. On a reduced synthetic dataset (8 assemblies x ~1 Mbp): the GPU build
    against the package's CPU build, then the multi-device build over D
    against the GPU build, all five outputs byte-equal, with B2 and B3
@@ -54,8 +58,14 @@ REPO = Path(__file__).resolve().parent
 K, W = 21, 200
 GRID = [(1, 4), (4, 3), (7, 10), (21, 200), (31, 16), (2, 9), (3, 17)]
 MAIN_GENOMES, MAIN_LEN = 64, 3_000_000
+EDGE_W = 4500                  # a window longer than the kernel's tile
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM peak outside the tensor cores
+INT32_PER_SM_CLOCK = 64        # Hopper's 32-bit integer instruction rate per SM
+SMS = 132                      # H100 SXM
+# 32-bit instructions per position of the least phase-1 algorithm (rolling
+# fwd/rev hash, canonical add, validity, prefix/suffix argmin and combine,
+# clean, z); the count is derived in the header of csrc/phase1.cu
+OPS_PER_POS = {'phase1_z': 50, 'phase1_zc': 50, 'phase1_pfx': 54}
 
 
 def log(*a):
@@ -67,6 +77,18 @@ def smi() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 and res.stdout.strip() else 'nvidia-smi unavailable'
+
+
+def sm_clock_hz() -> tuple[float, str]:
+    """The card's maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`)
+    and where it came from."""
+    res = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,nounits'],
+        capture_output=True, text=True, timeout=60)
+    try:
+        return float(res.stdout.strip().splitlines()[0]) * 1e6, 'nvidia-smi clocks.max.sm'
+    except (ValueError, IndexError):
+        return 1.98e9, 'assumed 1980 MHz (nvidia-smi clocks.max.sm unreadable)'
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -82,6 +104,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Mean ms of one launch of ``fn`` with the L2 cache flushed (a 256 MB
+    write) before each, CUDA events around the launch alone."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device='cuda')
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
 
 
 def aug_stream(records: list[np.ndarray]) -> np.ndarray:
@@ -107,6 +148,57 @@ def mixed_records(rng, scale: int = 1) -> list[np.ndarray]:
     return recs
 
 
+def chunk_stream(seed: int) -> np.ndarray:
+    """One main-path chunk: 2^25 positions, 3 Mbp records with four N runs
+    each."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 25
+    lens = [MAIN_LEN] * (n // MAIN_LEN)
+    recs = [rng.integers(0, 4, size=L).astype(np.uint8) for L in lens]
+    recs.append(rng.integers(0, 4, size=n - sum(lens)).astype(np.uint8))
+    for r in recs:
+        for s in rng.integers(0, len(r) - 200, size=4):
+            r[s:s + int(rng.integers(1, 200))] = 255
+    return aug_stream(recs)
+
+
+def edge_stream(rng, n_tiles: int, tile: int, k: int, w: int) -> np.ndarray:
+    """Augmented stream of n_tiles * tile + tile // 2 positions where ties
+    and boundaries are everywhere: random bases cut by homopolymer runs and
+    period-2..7 repeats, and at tile edges a record start, an N run and a
+    4-coded base at an offset that changes from edge to edge, around the
+    edge and around one of the segment edges (segments of w from the tile's
+    halo start); edges at least 2 (w + k) apart, so clean windows remain."""
+    n = n_tiles * tile + tile // 2
+    c = rng.integers(0, 4, size=n).astype(np.uint8)
+    pos = 0
+    while pos < n:
+        ln = int(rng.integers(w // 2 + 1, 3 * w + 2 * k + 8))
+        kind = int(rng.integers(0, 8))  # 0 random, 1 homopolymer, p >= 2 period p
+        if kind == 1:
+            c[pos:pos + ln] = rng.integers(0, 4)
+        elif kind >= 2:
+            c[pos:pos + ln] = np.resize(rng.integers(0, 4, size=kind), len(c[pos:pos + ln]))
+        pos += ln
+    near = sorted(set(range(-k - 2, k + 3)) | {-w - 1, -w, -w + 1, w - 2, w - 1, w, w + 1})
+    n_seg = -(-(tile + w - 1) // w)
+    starts = [0]
+    for m in range(1, n_tiles + 1, -(-2 * (w + k) // tile)):
+        edge = m * tile
+        seg = edge - (w - 1) + w * (m % n_seg)
+        starts.append(edge + near[m % len(near)])
+        a = edge + near[(3 * m + 1) % len(near)]
+        c[max(a, 0):max(a + 1 + m % (k + 2), 0)] = 255
+        b = seg + near[(5 * m + 2) % len(near)]
+        c[max(b, 0):max(b + 1 + m % 3, 0)] = 255
+        d = seg + near[(7 * m + 3) % len(near)]
+        if 0 <= d < n:
+            c[d] = 4
+    s = np.array(starts)
+    c[s[(s >= 0) & (s < n)]] |= 64
+    return c
+
+
 def phase_build():
     from seqwin_tpu_torch.engine import _kernels, phase1
 
@@ -122,7 +214,8 @@ def phase_build():
 def _kernel_specs():
     """Per kernel: name, TPU kernel mode it replaces, its wrapper and plain
     version as functions of (codes, k, w) returning a tuple of tensors, and
-    the bytes it must move per position."""
+    the bytes it must move and the 32-bit integer instructions it must
+    execute per position."""
     from seqwin_tpu_torch.engine import phase1
 
     def pfx_plain(codes, k, w):
@@ -131,11 +224,12 @@ def _kernel_specs():
     return [
         ('phase1_z', 'seqwin_tpu/engine/pallas_scan.py:202',
          lambda c, k, w: (phase1.phase1_z(c, k, w),),
-         lambda c, k, w: (phase1.phase1_z_plain(c, k, w),), 1 + 4),
+         lambda c, k, w: (phase1.phase1_z_plain(c, k, w),), 1 + 4, OPS_PER_POS['phase1_z']),
         ('phase1_zc', 'seqwin_tpu/engine/pallas_scan.py:350',
-         phase1.phase1_zc, phase1.phase1_zc_plain, 1 + 4 + 8),
+         phase1.phase1_zc, phase1.phase1_zc_plain, 1 + 4 + 8, OPS_PER_POS['phase1_zc']),
         ('phase1_pfx', 'seqwin_tpu/engine/pallas_scan.py:318',
-         lambda c, k, w: phase1.phase1_pfx(c, k, w)[:2], pfx_plain, 1 + 4 + 4),
+         lambda c, k, w: phase1.phase1_pfx(c, k, w)[:2], pfx_plain, 1 + 4 + 4,
+         OPS_PER_POS['phase1_pfx']),
     ]
 
 
@@ -169,45 +263,57 @@ def first_shard_stream(paths, devices):
     return dist._shard_layout(records, shard_of, devices[:1], K, W, offsets)[0]['codes']
 
 
-def time_kernel(fn, plain, codes, bytes_per_pos: int) -> dict:
-    """Kernel and plain ms (CUDA events) on ``codes`` at k=21, w=200, and
-    the bound: each input byte read once, each output written once, or ~20
-    integer ops per position for a rolling hash and an amortised O(1)
-    sliding minimum (the pfx scans add a few), whichever takes longer."""
+def time_kernel(fn, plain, codes, bytes_per_pos: int, ops_per_pos: int,
+                int_ops_per_s: float) -> dict:
+    """Kernel ms (CUDA events, L2 warm over 20 launches and flushed before
+    each of 5) and plain ms on ``codes`` at k=21, w=200, and the bound:
+    each input byte read once and each output written once at the memory
+    rate, or the least algorithm's 32-bit integer instructions at the
+    card's integer rate, whichever takes longer."""
     n = codes.numel()
     ms = cuda_ms(lambda: fn(codes, K, W), iters=20)
+    cold = cold_ms(lambda: fn(codes, K, W), iters=5)
     plain_ms = cuda_ms(lambda: plain(codes, K, W), iters=3, warmup=1)
     bytes_s = bytes_per_pos * n / HBM_BYTES_PER_S
-    ops_s = 20 * n / NON_TENSOR_OPS_PER_S
-    return dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_s, ops_s) * 1e3,
-                bound_by='bytes' if bytes_s >= ops_s else 'operations')
+    ops_s = ops_per_pos * n / int_ops_per_s
+    return dict(n=n, ms=ms, ms_l2_flushed=cold, plain_ms=plain_ms,
+                bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by='bytes' if bytes_s >= ops_s else 'operations',
+                bytes_ms=bytes_s * 1e3, ops_ms=ops_s * 1e3)
 
 
 def phase_kernels(seed: int, shard_codes) -> list[dict]:
-    """Each kernel against its plain version on the GRID streams, on one
-    2^25 chunk and (B2, B3) on ``shard_codes``, the first shard stream of
-    the multi-device main path; exact equality, both timed with CUDA events
-    on the kernel's main-path input and on the chunk."""
+    """Each kernel against its plain version on the GRID and tile-edge
+    streams, on one 2^25 chunk and (B2, B3) on ``shard_codes``, the first
+    shard stream of the multi-device main path; exact equality, both timed
+    with CUDA events on the kernel's main-path input and on the chunk."""
     import torch
+
+    from seqwin_tpu_torch.engine import phase1
 
     dev = torch.device('cuda')
     streams = []
     for k, w in GRID:
         rng = np.random.default_rng(seed + 7 * k + w)
         streams.append((k, w, torch.from_numpy(aug_stream(mixed_records(rng, scale=4))).to(dev)))
-    # one main-path chunk: 2^25 positions, 3 Mbp-scale records with N runs
-    rng = np.random.default_rng(seed)
-    n = 1 << 25
-    lens = np.full(n // 3_000_000, 3_000_000)
-    recs = [rng.integers(0, 4, size=int(L)).astype(np.uint8) for L in lens]
-    recs.append(rng.integers(0, 4, size=n - int(lens.sum())).astype(np.uint8))
-    for r in recs:
-        for s in rng.integers(0, len(r) - 200, size=4):
-            r[s:s + int(rng.integers(1, 200))] = 255
-    chunk = torch.from_numpy(aug_stream(recs)).to(dev)
+    # tile-edge streams at the kernel's tile, over the grid and a w above
+    # it, as views at byte offsets 0..3 so the kernel's word-wide staging
+    # meets every alignment
+    for j, (k, w) in enumerate(GRID + [(K, EDGE_W)]):
+        a = torch.from_numpy(edge_stream(np.random.default_rng(seed + 11 * k + w), 64,
+                                         phase1._TILE, k, w))
+        buf = torch.empty(a.numel() + 3, dtype=torch.uint8, device=dev)
+        streams.append((k, w, buf[j % 4:j % 4 + a.numel()].copy_(a)))
+    hz, hz_from = sm_clock_hz()
+    int_ops_per_s = INT32_PER_SM_CLOCK * SMS * hz
+    log(f'[kernel] bound rates: memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s; 32-bit integer '
+        f'{INT32_PER_SM_CLOCK} per SM per clock x {SMS} SMs x {hz / 1e6:.0f} MHz ({hz_from}) '
+        f'= {int_ops_per_s / 1e12:.2f} T/s')
+    chunk = torch.from_numpy(chunk_stream(seed)).to(dev)
+    n = chunk.numel()
 
     out = []
-    for name, replaces, fn, plain, bytes_per_pos in _kernel_specs():
+    for name, replaces, fn, plain, bytes_per_pos, ops_per_pos in _kernel_specs():
         # B1 runs on the single-device path's chunks, B2 and B3 on the
         # multi-device path's shard streams
         main_in = chunk if name == 'phase1_z' else shard_codes
@@ -222,17 +328,22 @@ def phase_kernels(seed: int, shard_codes) -> list[dict]:
             log(f'[kernel] {name} k={k} w={w} n={codes.numel()} mismatches={bad}')
             if bad:
                 raise AssertionError(f'{name} k={k} w={w}: {bad} mismatches')
-        at_chunk = time_kernel(fn, plain, chunk, bytes_per_pos)
-        at_main = at_chunk if main_in is chunk else time_kernel(fn, plain, main_in, bytes_per_pos)
+        rates = (bytes_per_pos, ops_per_pos, int_ops_per_s)
+        at_chunk = time_kernel(fn, plain, chunk, *rates)
+        at_main = at_chunk if main_in is chunk else time_kernel(fn, plain, main_in, *rates)
         for label, t in (('2^25 chunk', at_chunk), ('main-path input', at_main)):
             log(f"[kernel] {name} {label} n={t['n']} k={K} w={W}: mismatches=0 kernel "
-                f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-                f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_by']})")
+                f"{t['ms']:.4f} ms ({t['ms_l2_flushed']:.4f} ms L2 flushed), plain "
+                f"{t['plain_ms']:.3f} ms, bound {t['bound_ms'] * 1e3:.1f} us set by "
+                f"{t['bound_by']} (bytes {t['bytes_ms'] * 1e3:.1f} us, operations "
+                f"{t['ops_ms'] * 1e3:.1f} us at {ops_per_pos} per position)")
         out.append(dict(name=name, route='cuda', source='seqwin_tpu_torch/csrc/phase1.cu',
                         replaces=replaces, launches=None, mismatches=0,
                         max_abs_err=float(worst), **at_main, library_ms=None,
-                        chunk_n=n, chunk_ms=at_chunk['ms'], chunk_plain_ms=at_chunk['plain_ms'],
-                        chunk_bound_ms=at_chunk['bound_ms']))
+                        chunk_n=n, chunk_ms=at_chunk['ms'],
+                        chunk_ms_l2_flushed=at_chunk['ms_l2_flushed'],
+                        chunk_plain_ms=at_chunk['plain_ms'], chunk_bound_ms=at_chunk['bound_ms'],
+                        chunk_bound_by=at_chunk['bound_by']))
     return out
 
 
@@ -439,12 +550,24 @@ def check_main_run(run):
 
 
 def profile_run(build_fn, paths, targets, spans):
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
 
     with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         main_path(build_fn, paths, targets)
     avg = prof.key_averages()
     log(avg.table(sort_by='cuda_time_total', row_limit=15))
+    # device events less the annotations that mirror host spans, as the
+    # table's "Self CUDA time total" sums them: kernels, copies and the
+    # profiler's own "Activity Buffer Request" row
+    dev_events = [e for e in avg if e.device_type != DeviceType.CPU
+                  and not getattr(e, 'is_user_annotation', False)]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    kernels = {'phase1_kernel' + e.key.split('phase1_kernel')[1][:3]:
+               (e.count, e.self_device_time_total / 1e3)
+               for e in dev_events if 'phase1_kernel' in e.key}
+    log(f'[profile] device busy {busy:.3f} ms; phase-1 kernels '
+        f'(launches, ms) {kernels}')
     # a span with device work inside also has a device-side entry of the
     # same name and no CPU time: keep the CPU one
     found = {name: max((dict(calls=e.count, cpu_ms=e.cpu_time_total / 1e3)

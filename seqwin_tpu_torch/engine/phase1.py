@@ -166,8 +166,10 @@ def pfx_from_z(z: torch.Tensor, ts: int):
 def rot_seed_tables(k: int, device: torch.device) -> torch.Tensor:
     """Per-offset rotated seed tables as int64 bit patterns, int64[2, k, 4]
     on ``device``: [0, j, c] = srol^(k-1-j)(SEED[c]) and
-    [1, j, c] = srol^j(SEED_COMP[c]). Shared by the CUDA kernel and
-    `hybrid._canon_at_emitted`."""
+    [1, j, c] = srol^j(SEED_COMP[c]). Shared by the CUDA kernel (which
+    hashes each thread's first k-mer from them and takes its rolling seeds
+    SEED[c] = [0, k-1, c] and srol^k(SEED[c]) = srol([0, 0, c]) from them)
+    and `hybrid._canon_at_emitted`."""
     fwd = [[u64.as_signed(srol(SEEDS[c], (k - 1 - j) % 1023)) for c in range(4)]
            for j in range(k)]
     rev = [[u64.as_signed(srol(SEEDS_COMP[c], j % 1023)) for c in range(4)]
@@ -175,7 +177,7 @@ def rot_seed_tables(k: int, device: torch.device) -> torch.Tensor:
     return torch.tensor([fwd, rev], dtype=torch.int64, device=device)
 
 
-_TILE = 2048            # output positions per CTA (a multiple of 256 for B3)
+_TILE = 4096            # output positions per CTA (a multiple of 256)
 _SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
 _MODES = {'phase1_z': 0, 'phase1_zc': 1, 'phase1_pfx': 2}
 

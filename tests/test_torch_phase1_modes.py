@@ -13,6 +13,7 @@ from seqwin_tpu.engine.pallas_scan import L, pallas_phase1, phase1_shapes
 from seqwin_tpu_torch.engine import phase1
 from seqwin_tpu_torch.engine.hybrid import pfx_from_z
 
+from chip_smoke import edge_stream
 from test_torch_phase1 import GRID, _flat, _records
 
 
@@ -112,10 +113,18 @@ def cuda_device():
     return torch.device('cuda')
 
 
+# (21, 4500): a window longer than the kernel's tile
 @pytest.mark.gpu
-@pytest.mark.parametrize('k,w', GRID + [(2, 9), (3, 17)])
-def test_mode_kernels_match_plain_on_gpu(cuda_device, k, w):
-    codes = torch.from_numpy(_flat(_records(np.random.default_rng(k + w)))).to(cuda_device)
+@pytest.mark.parametrize('k,w', GRID + [(2, 9), (3, 17), (21, 4500)])
+@pytest.mark.parametrize('stream', ['records', 'edges'])
+def test_mode_kernels_match_plain_on_gpu(cuda_device, k, w, stream):
+    """Seeded records, and tile-edge streams (homopolymers, period-2..7
+    repeats, record starts and N runs around tile and segment edges) at the
+    kernel's tile."""
+    rng = np.random.default_rng(k + w)
+    codes = (_flat(_records(rng)) if stream == 'records'
+             else edge_stream(rng, 24, phase1._TILE, k, w))
+    codes = torch.from_numpy(codes).to(cuda_device)
     before = (phase1.phase1_zc.launches, phase1.phase1_pfx.launches)
     z, canon = phase1.phase1_zc(codes, k, w)
     zpfx, lrank, ts = phase1.phase1_pfx(codes, k, w)
