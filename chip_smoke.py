@@ -37,6 +37,17 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    nodes and edges must be equal. ``--profile`` traces one more run of each
    with torch.profiler and prints the device-time table and the package's
    host spans.
+5. The whole pipeline on the card. Reduced: `python -m seqwin_tpu_torch
+   --no-mash --no-blast -p 8` in a subprocess on the golden171 proxy cut to
+   24 genomes x 1 Mbp (10 targets), its signatures.fasta, signatures.csv
+   and assemblies.csv, and the arrays of a --no-filter run's graph.npz,
+   byte-equal to the port's CPU run (`run(Config(..., device='cpu'))`).
+   Full scale: the proxy at 72 + 99 genomes x 4.7 Mbp (~804 Mbp),
+   `cli.main` in this process twice with -p 8 (forked marker workers under
+   a live CUDA context); at least one signature, kernel B1 launched once
+   per 2^25-base chunk and B2/B3 never, both runs byte-equal; wall time and
+   the per-phase `Finished in` seconds of each run. ``--profile`` traces the
+   second run through `Config.profile_dir` and prints its device busy.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -46,6 +57,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
+import re
 import subprocess
 import sys
 import tempfile
@@ -491,13 +504,15 @@ def phase_small(seed: int, devices):
         f'({graph.n_chunks} shards with bases) in {t_multi:.2f} s')
 
 
-def main_path(build_fn, paths, targets):
+def main_path(build_fn, paths, targets, config):
     """A deferred build (``build_fn``) + the pipeline's device consumption
-    without mash: host float64 threshold, edge filter, kept-k-mer
+    without mash: the host float64 penalty and threshold of
+    `pipeline.kmers` under ``config``, edge filter, kept-k-mer
     compaction."""
     import torch
 
     from seqwin_tpu_torch.graph import kept_node_layout
+    from seqwin_tpu_torch.pipeline import kmers as pk
 
     t0 = time.perf_counter()
     graph, offsets, record_ids = build_fn(paths, targets)
@@ -506,15 +521,9 @@ def main_path(build_fn, paths, targets):
     nodes = graph.nodes
     n_tar = sum(targets)
     n_neg = len(targets) - n_tar
-    frac_tar = nodes['n_tar'] / n_tar
-    frac_neg = nodes['n_neg'] / n_neg
-    nodes['penalty'] = ((1 - frac_tar) ** 2 + frac_neg ** 2) ** 0.5
-    # no-mash threshold estimate (stringency 5, cap 0.2, edge multiplier 0.3)
-    s_tar = np.sum(nodes['n_tar'])
-    e_absence_tar = 1 - np.sum(frac_tar * nodes['n_tar']) / s_tar
-    e_presence_neg = np.sum(frac_neg * nodes['n_tar']) / s_tar
-    penalty_th = min(0.5 * (e_absence_tar * e_presence_neg) ** 0.5, 0.2)
-    edge_weight_th = 0.3 * (1 - penalty_th) * n_tar
+    nodes['penalty'] = pk.frac_to_penalty(nodes['n_tar'] / n_tar, nodes['n_neg'] / n_neg)
+    penalty_th = pk.penalty_threshold(*pk.minimizer_expectations(nodes, n_tar, n_neg), config)
+    edge_weight_th = pk.edge_weight_threshold(penalty_th, n_tar, config)
     edges = graph.filter_edges(edge_weight_th)
     # compact the k-mers of the nodes that survive the edge filter
     # (pipeline/kmers.py:203), the superset of what subgraph search keeps
@@ -549,12 +558,12 @@ def check_main_run(run):
     return full_edges
 
 
-def profile_run(build_fn, paths, targets, spans):
+def profile_run(build_fn, paths, targets, config, spans):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
 
     with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        main_path(build_fn, paths, targets)
+        main_path(build_fn, paths, targets, config)
     avg = prof.key_averages()
     log(avg.table(sort_by='cuda_time_total', row_limit=15))
     # device events less the annotations that mirror host spans, as the
@@ -577,6 +586,17 @@ def profile_run(build_fn, paths, targets, spans):
     log('[profile] host spans ' + json.dumps(found))
 
 
+def write_lists(td: Path, paths, targets) -> dict:
+    """The target and non-target path lists of a run, as `Config` takes
+    them."""
+    lists = {}
+    for key, want in (('tar_paths', True), ('neg_paths', False)):
+        txt = td / f'{key}.txt'
+        txt.write_text(''.join(f'{p}\n' for p, t in zip(paths, targets) if t == want))
+        lists[key] = txt
+    return lists
+
+
 def main_data(td: Path, seed: int):
     """The 192 Mbp main-path dataset: 64 genomes x 3 Mbp, one record each."""
     t0 = time.perf_counter()
@@ -585,12 +605,15 @@ def main_data(td: Path, seed: int):
     return paths, targets
 
 
-def phase_main(paths, targets, profile: bool, card: str, devices) -> dict:
+def phase_main(paths, targets, profile: bool, card: str, devices, td: Path) -> dict:
     """The 192 Mbp main path, single-device and multi-device over
     ``devices``; each run is driven with every launch count at 0 and read
     just after."""
+    from seqwin_tpu_torch import Config
     from seqwin_tpu_torch.graph import build_deferred
     from seqwin_tpu_torch.parallel import build_distributed
+
+    config = Config(**write_lists(td, paths, targets), prefix=td, run_mash=False, run_blast=False)
 
     def single(paths, targets):
         return build_deferred(paths, K, W, targets, n_cpu=8)
@@ -604,11 +627,11 @@ def phase_main(paths, targets, profile: bool, card: str, devices) -> dict:
             ('multi', multi, ('hybrid.host_prep', 'distributed.prepass',
                               'distributed.step', 'distributed.merge'))):
         reset_launches()
-        run = main_path(fn, paths, targets)
+        run = main_path(fn, paths, targets, config)
         launches = read_launches()
-        second = main_path(fn, paths, targets)
+        second = main_path(fn, paths, targets, config)
         if profile:
-            profile_run(fn, paths, targets, spans)
+            profile_run(fn, paths, targets, config, spans)
         res[label] = dict(run=run, second=second, launches=launches)
 
     out = {}
@@ -646,6 +669,174 @@ def phase_main(paths, targets, profile: bool, card: str, devices) -> dict:
     return out
 
 
+def proxy_data(td: Path, n_tar: int, n_neg: int, genome_len: int, seed: int):
+    """The golden171 proxy (the reference's 171-genome run, re-made):
+    targets from one random ancestor with 0.5% SNPs each, non-targets from
+    an 8%-diverged root with 1%, each with one N run and cut into two
+    records. Returns the `Config` path lists and the record lengths in scan
+    order."""
+    rng = np.random.default_rng(seed)
+    ancestor = rng.integers(0, 4, size=genome_len).astype(np.uint8)
+    neg_root = ancestor.copy()
+    idx = rng.integers(0, genome_len, size=int(genome_len * 0.08))
+    neg_root[idx] = (neg_root[idx] + rng.integers(1, 4, size=idx.size)) % 4
+    paths, targets, rec_lens = [], [], []
+    for i in range(n_tar + n_neg):
+        is_tar = i < n_tar
+        g = (ancestor if is_tar else neg_root).copy()
+        idx = rng.integers(0, genome_len, size=int(genome_len * (0.005 if is_tar else 0.01)))
+        g[idx] = (g[idx] + rng.integers(1, 4, size=idx.size)) % 4
+        n0 = int(rng.integers(0, genome_len - 500))
+        g[n0:n0 + int(rng.integers(10, 300))] = 4
+        cut = int(rng.integers(genome_len // 4, 3 * genome_len // 4))
+        p = td / f'{"tar" if is_tar else "neg"}_{i:03d}.fasta'
+        write_fasta(p, [(f'proxy_{i}_0', g[:cut]), (f'proxy_{i}_1', g[cut:])])
+        paths.append(p)
+        targets.append(is_tar)
+        rec_lens += [cut, genome_len - cut]
+    return write_lists(td, paths, targets), rec_lens
+
+
+def expected_chunks(rec_lens) -> int:
+    """Chunks of the single-device build: records in scan order, a new
+    chunk when the next record would pass the chunk budget."""
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
+
+    chunks, bases = 0, 0
+    for n in rec_lens:
+        if bases + n > DEFAULT_CHUNK_BASES and bases:
+            chunks, bases = chunks + 1, 0
+        bases += n
+    return chunks + (bases > 0)
+
+
+_FINISHED = re.compile(r'Finished in (\d+):(\d+):([\d.]+)')
+PHASES = ('build_graph', 'threshold', 'subgraphs', 'markers')
+
+
+def log_phases(log_file: Path) -> dict:
+    """Per-phase seconds from a run's `Finished in` lines, in pipeline
+    order (the format `benchmarks/pipeline_e2e.py` reads)."""
+    durs = [int(h) * 3600 + int(m) * 60 + float(sec)
+            for h, m, sec in _FINISHED.findall(log_file.read_text())]
+    return dict(zip(PHASES, durs))
+
+
+def _differing(a: Path, b: Path, names) -> list:
+    """The files of ``names`` whose bytes differ between run dirs a and b."""
+    return [n for n in names if (a / n).read_bytes() != (b / n).read_bytes()]
+
+
+def phase_pipeline_reduced(seed: int):
+    """24 genomes x 1 Mbp (10 targets, 14 non-targets): `python -m
+    seqwin_tpu_torch` on the card in a subprocess, against the port's CPU
+    run in this process; signatures.fasta/.csv and assemblies.csv byte-equal,
+    and the arrays of a --no-filter run's graph.npz."""
+    from seqwin_tpu_torch import Config, run
+
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        lists, _ = proxy_data(td, 10, 14, 1_000_000, seed + 5)
+        common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+                  '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8']
+        secs = {}
+        for title, extra in (('gpu', []), ('gpu_raw', ['--no-filter'])):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common,
+                                  '--title', title, *extra],
+                                 cwd=REPO, capture_output=True, text=True, timeout=600)
+            secs[title] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f'python -m seqwin_tpu_torch ({title}) exited '
+                                     f'{res.returncode}:\n{res.stderr[-3000:]}')
+        for title, kw in (('cpu', {}), ('cpu_raw', dict(no_filter=True))):
+            t0 = time.perf_counter()
+            run(Config(**lists, prefix=td, title=title, run_mash=False, run_blast=False,
+                       n_cpu=8, device='cpu', **kw))
+            secs[title] = time.perf_counter() - t0
+        differ = _differing(td / 'gpu', td / 'cpu',
+                               ('signatures.fasta', 'signatures.csv', 'assemblies.csv'))
+        if differ:
+            raise AssertionError(f'reduced pipeline: GPU CLI and CPU run differ in {differ}')
+        n_sig = (td / 'gpu' / 'signatures.fasta').read_bytes().count(b'>')
+        gpu, cpu = np.load(td / 'gpu_raw' / 'graph.npz'), np.load(td / 'cpu_raw' / 'graph.npz')
+        for key in ('kmers', 'nodes', 'edges', 'record_offsets'):
+            if gpu[key].dtype != cpu[key].dtype or gpu[key].tobytes() != cpu[key].tobytes():
+                raise AssertionError(f'reduced pipeline: --no-filter graph.npz {key} differs')
+        if not n_sig:
+            raise AssertionError('reduced pipeline: no signature')
+        log(f'[pipeline] 24 x 1 Mbp: `python -m seqwin_tpu_torch --no-mash --no-blast -p 8` '
+            f'on the card byte-equal to the CPU run: {n_sig} signatures, signatures.fasta, '
+            f'signatures.csv, assemblies.csv; --no-filter graph.npz arrays equal '
+            f'({len(gpu["kmers"])} minimizers); seconds '
+            + ', '.join(f'{k} {v:.2f}' for k, v in secs.items()))
+
+
+def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
+    """The golden171 proxy at its own scale, 72 + 99 genomes x 4.7 Mbp
+    (~804 Mbp): `cli.main` in this process twice, -p 8, each driven with
+    the launch counts at 0 and read just after; at least one signature, B1
+    once per chunk, B2 and B3 never, the two runs byte-equal. With
+    ``profile`` the second (timed) run carries `Config.profile_dir`."""
+    import dataclasses
+
+    import torch
+
+    from seqwin_tpu_torch import cli, core
+
+    n_tar, n_neg, genome_len = 72, 99, 4_700_000
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        t0 = time.perf_counter()
+        lists, rec_lens = proxy_data(td, n_tar, n_neg, genome_len, seed + 171)
+        log(f'[pipeline] datagen {time.perf_counter() - t0:.1f} s '
+            f'({n_tar} + {n_neg} x {genome_len} bp, {len(rec_lens)} records)')
+        chunks = expected_chunks(rec_lens)
+        runs = []
+        for title in ('e2e_first', 'e2e'):
+            argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+                    '--prefix', str(td), '--title', title, '--no-mash', '--no-blast', '-p', '8']
+            prof_dir = td / 'profile' if profile and title == 'e2e' else None
+            reset_launches()
+            t0 = time.perf_counter()
+            if prof_dir is None:
+                rc = cli.main(argv)
+            else:
+                args = cli.build_parser().parse_args(argv)
+                core.run(dataclasses.replace(cli.config_from_args(args), profile_dir=prof_dir))
+                rc = 0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if rc != 0:
+                raise AssertionError(f'cli.main exited {rc} ({title})')
+            want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+            if launches != want:
+                raise AssertionError(f'pipeline launches {launches}, expected {want}')
+            out_dir = td / title
+            log_text = (out_dir / 'seqwin.log').read_text()
+            busy = re.search(r'Device busy ([\d.]+) ms', log_text) if prof_dir else None
+            if prof_dir is not None and not ((prof_dir / 'trace.json').is_file() and busy):
+                raise AssertionError('profiled pipeline run: no trace or no device-busy line')
+            runs.append(dict(title=title, wall_s=wall, phases_s=log_phases(out_dir / 'seqwin.log'),
+                             launches=launches, device_busy_ms=float(busy.group(1)) if busy else None,
+                             n_signatures=(out_dir / 'signatures.fasta').read_bytes().count(b'>')))
+        differ = _differing(td / 'e2e_first', td / 'e2e',
+                               ('signatures.fasta', 'signatures.csv', 'assemblies.csv'))
+        if differ:
+            raise AssertionError(f'full-scale pipeline: the two runs differ in {differ}')
+        if not runs[0]['n_signatures']:
+            raise AssertionError('full-scale pipeline: no signature')
+    for r in runs:
+        log(f"[pipeline] {n_tar} + {n_neg} x {genome_len} bp, cli.main -p 8 ({r['title']}): "
+            f"{r['wall_s']:.2f} s wall; phases (s) {json.dumps(r['phases_s'])}; "
+            f"{r['n_signatures']} signatures; launches {r['launches']} ({chunks} chunks)"
+            + (f"; device busy {r['device_busy_ms']:.3f} ms (torch.profiler)"
+               if r['device_busy_ms'] is not None else '') + f'; on {card}')
+    log('[pipeline] both runs byte-equal: signatures.fasta, signatures.csv, assemblies.csv')
+    return dict(chunks=chunks, launches=runs[0]['launches'], runs=runs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -664,6 +855,10 @@ def main() -> int:
     except ImportError as e:
         print(f'chip_smoke: seqwin_tpu_torch not importable from {REPO}: {e}', file=sys.stderr)
         return 1
+    # the package's INFO lines go to each run's seqwin.log, not to stdout
+    for handler in logging.getLogger().handlers:
+        if isinstance(handler, logging.StreamHandler) and not isinstance(handler, logging.FileHandler):
+            handler.setLevel(logging.WARNING)
 
     name = torch.cuda.get_device_name(0)
     card = smi()
@@ -676,10 +871,13 @@ def main() -> int:
         paths, targets = main_data(Path(td), args.seed)
         kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
         phase_small(args.seed, devices)
-        main_res = phase_main(paths, targets, args.profile, card, devices)
+        main_res = phase_main(paths, targets, args.profile, card, devices, Path(td))
+    phase_pipeline_reduced(args.seed)
+    pipe = phase_pipeline_full(args.seed, args.profile, card)
     for kern in kernels:
         path = 'single' if kern['name'] == 'phase1_z' else 'multi'
         kern['launches'] = main_res[path]['launches'][kern['name']]
+        kern['pipeline_launches'] = pipe['launches'][kern['name']]
     log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {

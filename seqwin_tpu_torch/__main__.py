@@ -1,0 +1,7 @@
+"""`python -m seqwin_tpu_torch` runs the CLI."""
+import sys
+
+from .cli import main
+
+if __name__ == '__main__':
+    sys.exit(main())

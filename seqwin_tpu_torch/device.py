@@ -8,10 +8,14 @@ from __future__ import annotations
 import torch
 
 
+class DeviceUnavailable(RuntimeError):
+    """The run asked for the GPU (the default) and there is none."""
+
+
 def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceUnavailable(
                 'seqwin_tpu_torch runs on a CUDA device by default and none is '
                 "available; pass device='cpu' to run the plain torch version")
         return torch.device('cuda')

@@ -1,7 +1,8 @@
 """Host-side FASTA ingest.
 
 Counterpart: `seqwin_tpu/io/fasta.py` (copied: `parse_fasta_codes` and its
-NumPy fallback). Parsing semantics:
+NumPy fallback, and `load_fasta`, the marker sequence fetch's loader).
+Parsing semantics of `parse_fasta_codes`:
 
 - plain or gzip input (gzip iff the path ends with ``.gz``)
 - trailing ``\\r`` stripped per line; blank / whitespace-only lines skipped
@@ -122,6 +123,31 @@ def parse_fasta_codes_py(path: str | Path) -> tuple[list[str], list[np.ndarray]]
         record_codes.append(CODE_TAB[seq_bytes])
 
     return record_ids, record_codes
+
+
+def load_fasta(path: str | Path) -> tuple[str, ...]:
+    """Sequences of FASTA records, upper-cased, for marker sequence fetch.
+
+    Mirrors the reference's Python loader: only ``\\n`` characters are
+    stripped from sequence bodies (not ``\\r`` or spaces), and the result is
+    upper-cased -- the extracted signature sequences must match that loader
+    byte for byte.
+    """
+    path = Path(path)
+    if path.suffix == GZIP_EXT:
+        content = gzip.decompress(path.read_bytes()).decode()
+    else:
+        content = path.read_text()
+    if not content or content[0] != '>':
+        raise ValueError(f"FASTA file must start with '>', in: {path}")
+    seqs: list[str] = []
+    for record in content.split('>')[1:]:
+        header_pos = record.find('\n')
+        if header_pos == -1:
+            seqs.append('')
+        else:
+            seqs.append(record[header_pos:].replace('\n', '').upper())
+    return tuple(seqs)
 
 
 def iter_assemblies(paths: list[str], n_cpu: int):

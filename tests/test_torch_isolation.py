@@ -1,5 +1,6 @@
-"""seqwin_tpu_torch stands alone: no JAX, nothing of seqwin_tpu, and no
-quiet CPU fallback when the default device (the GPU) is missing."""
+"""seqwin_tpu_torch stands alone: no JAX, nothing of seqwin_tpu, no pandas
+or pydantic, and no quiet CPU fallback when the default device (the GPU) is
+missing."""
 import re
 import subprocess
 import sys
@@ -12,7 +13,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / 'seqwin_tpu_torch'
 
 
-def test_import_leaves_jax_and_seqwin_tpu_out():
+def test_import_leaves_jax_and_seqwin_tpu_out(tmp_path):
     code = (
         'import sys\n'
         f'sys.path.insert(0, {str(REPO)!r})\n'
@@ -20,11 +21,15 @@ def test_import_leaves_jax_and_seqwin_tpu_out():
         'seqwin_tpu_torch.graph.build\n'
         'import seqwin_tpu_torch.engine.hybrid, seqwin_tpu_torch.engine.aggregate\n'
         'import seqwin_tpu_torch.parallel.distributed\n'
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'seqwin_tpu')]\n"
+        'import seqwin_tpu_torch.core, seqwin_tpu_torch.cli, seqwin_tpu_torch.__main__\n'
+        'import seqwin_tpu_torch.pipeline.kmers, seqwin_tpu_torch.pipeline.subgraphs\n'
+        'import seqwin_tpu_torch.pipeline.markers, seqwin_tpu_torch.mash\n'
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'seqwin_tpu', 'pandas', 'pydantic')]\n"
         'print(bad)\n'
     )
     res = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
-                         cwd=REPO.parent, timeout=120)
+                         cwd=tmp_path, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == '[]'
 
@@ -49,3 +54,25 @@ def test_default_device_raises_without_gpu(tmp_path):
         build([fa], 5, 3, [True])
     with pytest.raises(RuntimeError, match='CUDA'):
         build_deferred([fa], 5, 3, [True])
+
+
+def test_cli_without_gpu_exits_nonzero(tmp_path):
+    """`python -m seqwin_tpu_torch` with no card stops with the CUDA error
+    before it writes anything; it does not run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    lists = []
+    for role in ('tar', 'neg'):
+        fa = tmp_path / f'{role}.fa'
+        fa.write_text('>r\n' + 'ACGTTGCAAGT' * 40 + '\n')
+        txt = tmp_path / f'{role}.txt'
+        txt.write_text(f'{fa}\n')
+        lists.append(txt)
+    res = subprocess.run(
+        [sys.executable, '-m', 'seqwin_tpu_torch', '--tar-paths', str(lists[0]),
+         '--neg-paths', str(lists[1]), '--prefix', str(tmp_path), '--title', 'out',
+         '--no-mash', '--no-blast'],
+        capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert res.returncode != 0
+    assert 'CUDA' in res.stderr
+    assert not (tmp_path / 'out').exists()
