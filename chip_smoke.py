@@ -48,6 +48,25 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    per 2^25-base chunk and B2/B3 never, both runs byte-equal; wall time and
    the per-phase `Finished in` seconds of each run. ``--profile`` traces the
    second run through `Config.profile_dir` and prints its device busy.
+6. Long records, low memory, the host backend and the sort engine on the
+   card. (1) The golden171 proxy with each genome as ONE record (72 + 99
+   complete genomes x 4.7 Mbp, ~804 Mbp, every record above the 2^22-base
+   low-memory budget): `cli.main --low-memory` and the normal `cli.main`,
+   -p 8, their signatures.fasta, signatures.csv and assemblies.csv
+   byte-equal; under --low-memory B1 launched once per block of the
+   records' block plans and B2/B3 never; wall time and `Finished in`
+   seconds of both. (2) One ~100 Mbp record and three short ones: the
+   default 2^25 budget (the record in halo'd blocks), one 2^27 chunk, and
+   `build_distributed` over D (the record sequence-sharded) all byte-equal,
+   each with the launches of its plan; then phase 3's no-sync check of the
+   pre-pass and step with the sequence-sharded stream in them. (3) The
+   phase-4 192 Mbp data through `build_distributed(low_memory=True)` over
+   D (batches of whole assemblies merged on the host) byte-equal to the
+   single-device build.
+   (4) `python -m seqwin_tpu_torch --backend numpy` with no card visible on
+   phase 5's reduced proxy, its three files byte-equal to the GPU CLI run;
+   ``SEQWIN_TPU_TORCH_SCAN=sort`` on phase 3's data byte-equal to the
+   hybrid build, launching no kernel.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -58,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -71,6 +91,8 @@ REPO = Path(__file__).resolve().parent
 K, W = 21, 200
 GRID = [(1, 4), (4, 3), (7, 10), (21, 200), (31, 16), (2, 9), (3, 17)]
 MAIN_GENOMES, MAIN_LEN = 64, 3_000_000
+PROXY = (72, 99, 4_700_000)    # golden171 proxy: targets, non-targets, genome length
+LONG_LEN = 100_000_000         # phase 6's long record
 EDGE_W = 4500                  # a window longer than the kernel's tile
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_PER_SM_CLOCK = 64        # Hopper's 32-bit integer instruction rate per SM
@@ -433,15 +455,15 @@ def _assert_same_build(name, got, want):
 def check_no_sync(paths, devices):
     """The multi-device pre-pass and build step over ``devices`` enqueue
     without a host sync: each runs under torch's sync debug mode 'error',
-    which raises on any call that waits on the device."""
+    which raises on any call that waits on the device. The layout before
+    them (host prep, and the scan of sequence-sharded records) may sync."""
     import torch
 
     from seqwin_tpu_torch.parallel import distributed as dist
 
     records, offsets = parse_records(paths)
     n_dev = len(devices)
-    shards = dist._shard_layout(records, dist.partition_records([len(c) for c in records], n_dev),
-                                devices, K, W, offsets)
+    shards, extras = dist._layout(records, offsets, K, W, devices)
     torch.cuda.synchronize()
 
     def strict(fn, *args):
@@ -458,12 +480,14 @@ def check_no_sync(paths, devices):
         pass
     else:
         raise AssertionError("sync debug mode 'error' let torch.bincount through")
-    pre = strict(dist._prepass, shards, K, W, n_dev)
+    pre = strict(dist._prepass, shards, K, W, n_dev, extras)
     counts, e_hist, p_hist = dist._read_prepass(pre, n_dev)
-    _, _, checks = strict(dist._step, shards, K, W, counts, e_hist, p_hist, devices)
+    _, _, checks = strict(dist._step, shards, K, W, counts, e_hist, p_hist, devices, extras)
     dist._check_step(checks)
-    log(f'[no-sync] pre-pass and build step of {sum(s is not None for s in shards)} shards '
-        "ran under sync debug mode 'error' without a sync; step counts agree with the pre-pass")
+    n_x = sum(x is not None for x in extras)
+    log(f'[no-sync] pre-pass and build step of {sum(s is not None for s in shards)} shard '
+        f'streams{f" and {n_x} sequence-sharded streams" if n_x else ""} ran under sync debug '
+        "mode 'error' without a sync; step counts agree with the pre-pass")
 
 
 def phase_small(seed: int, devices):
@@ -484,6 +508,7 @@ def phase_small(seed: int, devices):
         t0 = time.perf_counter()
         cpu = build(paths, K, W, targets, n_cpu=8, device='cpu')
         t_cpu = time.perf_counter() - t0
+        sort, sort_launches, t_sort = sort_engine_build(paths, targets)
         before = read_launches()
         t0 = time.perf_counter()
         graph, offsets, ids = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True)
@@ -493,6 +518,11 @@ def phase_small(seed: int, devices):
     _assert_same_build('GPU build vs CPU build', gpu, cpu)
     log(f'[cpu-vs-gpu] 8 x 1 Mbp: byte-equal kmers={len(gpu[0])} nodes={len(gpu[1])} '
         f'edges={len(gpu[2])} (gpu {t_gpu:.2f} s, cpu {t_cpu:.2f} s)')
+    _assert_same_build('sort engine vs hybrid build', sort, gpu)
+    if any(sort_launches.values()):
+        raise AssertionError(f'sort engine build launched kernels: {sort_launches}')
+    log(f'[phase6 sort] 8 x 1 Mbp: SEQWIN_TPU_TORCH_SCAN=sort on the card byte-equal to the '
+        f'hybrid build in {t_sort:.2f} s; launches {sort_launches}')
     kmers, edges = graph.materialize()
     _assert_same_build('multi-device vs single-device build',
                        (kmers, graph.nodes, edges, offsets, ids), gpu)
@@ -502,6 +532,22 @@ def phase_small(seed: int, devices):
     log(f'[multi-vs-single] 8 x 1 Mbp over {len(devices)} shards {[str(d) for d in devices]}: '
         f'byte-equal to the single-device build; launches {grew} '
         f'({graph.n_chunks} shards with bases) in {t_multi:.2f} s')
+
+
+def sort_engine_build(paths, targets):
+    """The single-device GPU build on the sort engine
+    (``SEQWIN_TPU_TORCH_SCAN=sort``): (result, kernel launches, seconds)."""
+    from seqwin_tpu_torch.graph import build
+
+    before = read_launches()
+    os.environ['SEQWIN_TPU_TORCH_SCAN'] = 'sort'
+    try:
+        t0 = time.perf_counter()
+        res = build(paths, K, W, targets, n_cpu=8, device='cuda')
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ['SEQWIN_TPU_TORCH_SCAN']
+    return res, {k: v - before[k] for k, v in read_launches().items()}, secs
 
 
 def main_path(build_fn, paths, targets, config):
@@ -669,12 +715,14 @@ def phase_main(paths, targets, profile: bool, card: str, devices, td: Path) -> d
     return out
 
 
-def proxy_data(td: Path, n_tar: int, n_neg: int, genome_len: int, seed: int):
+def proxy_data(td: Path, n_tar: int, n_neg: int, genome_len: int, seed: int,
+               records_per_genome: int = 2):
     """The golden171 proxy (the reference's 171-genome run, re-made):
     targets from one random ancestor with 0.5% SNPs each, non-targets from
     an 8%-diverged root with 1%, each with one N run and cut into two
-    records. Returns the `Config` path lists and the record lengths in scan
-    order."""
+    records (or written whole, a complete genome, with
+    ``records_per_genome=1``). Returns the `Config` path lists and the
+    record lengths in scan order."""
     rng = np.random.default_rng(seed)
     ancestor = rng.integers(0, 4, size=genome_len).astype(np.uint8)
     neg_root = ancestor.copy()
@@ -689,12 +737,38 @@ def proxy_data(td: Path, n_tar: int, n_neg: int, genome_len: int, seed: int):
         n0 = int(rng.integers(0, genome_len - 500))
         g[n0:n0 + int(rng.integers(10, 300))] = 4
         cut = int(rng.integers(genome_len // 4, 3 * genome_len // 4))
+        parts = [g[:cut], g[cut:]] if records_per_genome == 2 else [g]
         p = td / f'{"tar" if is_tar else "neg"}_{i:03d}.fasta'
-        write_fasta(p, [(f'proxy_{i}_0', g[:cut]), (f'proxy_{i}_1', g[cut:])])
+        write_fasta(p, [(f'proxy_{i}_{j}', r) for j, r in enumerate(parts)])
         paths.append(p)
         targets.append(is_tar)
-        rec_lens += [cut, genome_len - cut]
+        rec_lens += [len(r) for r in parts]
     return write_lists(td, paths, targets), rec_lens
+
+
+def list_paths(lists: dict) -> list[Path]:
+    """The FASTA paths of a run's path lists, targets first."""
+    return [Path(ln) for key in ('tar_paths', 'neg_paths')
+            for ln in lists[key].read_text().split()]
+
+
+def expected_scans(records, budget: int) -> int:
+    """Kernel B1 launches of the single-device build at chunk ``budget``:
+    one per chunk of packed records, and one per block of each record above
+    the budget (its `_record_block_plan`; one for a degenerate plan)."""
+    from seqwin_tpu_torch.engine.hybrid import _record_block_plan
+
+    scans, bases = 0, 0
+    for c in records:
+        if len(c) > budget:
+            plan = _record_block_plan(c, K, W, budget)
+            scans += (bases > 0) + (len(plan) if plan else 1)
+            bases = 0
+            continue
+        if bases + len(c) > budget and bases:
+            scans, bases = scans + 1, 0
+        bases += len(c)
+    return scans + (bases > 0)
 
 
 def expected_chunks(rec_lens) -> int:
@@ -710,6 +784,7 @@ def expected_chunks(rec_lens) -> int:
     return chunks + (bases > 0)
 
 
+FILES = ('signatures.fasta', 'signatures.csv', 'assemblies.csv')
 _FINISHED = re.compile(r'Finished in (\d+):(\d+):([\d.]+)')
 PHASES = ('build_graph', 'threshold', 'subgraphs', 'markers')
 
@@ -749,6 +824,15 @@ def phase_pipeline_reduced(seed: int):
             if res.returncode != 0:
                 raise AssertionError(f'python -m seqwin_tpu_torch ({title}) exited '
                                      f'{res.returncode}:\n{res.stderr[-3000:]}')
+        # the host backend with no card visible: it needs none
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common, '--title',
+                              'numpy', '--backend', 'numpy'], cwd=REPO, capture_output=True,
+                             text=True, timeout=600, env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
+        secs['numpy'] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f'python -m seqwin_tpu_torch --backend numpy exited '
+                                 f'{res.returncode}:\n{res.stderr[-3000:]}')
         for title, kw in (('cpu', {}), ('cpu_raw', dict(no_filter=True))):
             t0 = time.perf_counter()
             run(Config(**lists, prefix=td, title=title, run_mash=False, run_blast=False,
@@ -758,6 +842,9 @@ def phase_pipeline_reduced(seed: int):
                                ('signatures.fasta', 'signatures.csv', 'assemblies.csv'))
         if differ:
             raise AssertionError(f'reduced pipeline: GPU CLI and CPU run differ in {differ}')
+        differ = _differing(td / 'gpu', td / 'numpy', FILES)
+        if differ:
+            raise AssertionError(f'reduced pipeline: --backend numpy and the GPU CLI differ in {differ}')
         n_sig = (td / 'gpu' / 'signatures.fasta').read_bytes().count(b'>')
         gpu, cpu = np.load(td / 'gpu_raw' / 'graph.npz'), np.load(td / 'cpu_raw' / 'graph.npz')
         for key in ('kmers', 'nodes', 'edges', 'record_offsets'):
@@ -770,6 +857,9 @@ def phase_pipeline_reduced(seed: int):
             f'signatures.csv, assemblies.csv; --no-filter graph.npz arrays equal '
             f'({len(gpu["kmers"])} minimizers); seconds '
             + ', '.join(f'{k} {v:.2f}' for k, v in secs.items()))
+        log(f'[phase6 host-backend] 24 x 1 Mbp: `python -m seqwin_tpu_torch --backend numpy` '
+            f'with CUDA_VISIBLE_DEVICES="" byte-equal to the GPU CLI run (signatures.fasta, '
+            f"signatures.csv, assemblies.csv) in {secs['numpy']:.2f} s")
 
 
 def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
@@ -784,7 +874,7 @@ def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
 
     from seqwin_tpu_torch import cli, core
 
-    n_tar, n_neg, genome_len = 72, 99, 4_700_000
+    n_tar, n_neg, genome_len = PROXY
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
         t0 = time.perf_counter()
@@ -837,6 +927,188 @@ def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
     return dict(chunks=chunks, launches=runs[0]['launches'], runs=runs)
 
 
+def phase_low_memory_cli(seed: int, profile: bool, card: str) -> dict:
+    """Phase 6 (1): complete genomes, one record each, 72 + 99 x 4.7 Mbp:
+    `cli.main` normal and with --low-memory, -p 8, each driven with the
+    launch counts at 0; byte-equal files, B1 once per chunk (normal) or per
+    block of the records' plans (low memory), B2 and B3 never. With
+    ``profile`` a third, low-memory run is traced through
+    `Config.profile_dir`."""
+    import dataclasses
+
+    import torch
+
+    from seqwin_tpu_torch import cli, core
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, LOW_MEMORY_CHUNK_BASES
+
+    n_tar, n_neg, genome_len = PROXY
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        t0 = time.perf_counter()
+        lists, rec_lens = proxy_data(td, n_tar, n_neg, genome_len, seed + 6, records_per_genome=1)
+        records, _ = parse_records(list_paths(lists))
+        want_b1 = {'normal': expected_scans(records, DEFAULT_CHUNK_BASES),
+                   'low_memory': expected_scans(records, LOW_MEMORY_CHUNK_BASES)}
+        del records
+        log(f'[phase6 low-memory] datagen and plans {time.perf_counter() - t0:.1f} s '
+            f'({n_tar} + {n_neg} x {genome_len} bp, {len(rec_lens)} records, '
+            f'{sum(n > LOW_MEMORY_CHUNK_BASES for n in rec_lens)} above the low-memory budget)')
+        runs = {}
+        titles = ['normal', 'low_memory'] + (['low_memory_traced'] if profile else [])
+        for title in titles:
+            argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+                    '--prefix', str(td), '--title', title, '--no-mash', '--no-blast', '-p', '8',
+                    *([] if title == 'normal' else ['--low-memory'])]
+            reset_launches()
+            t0 = time.perf_counter()
+            if title == 'low_memory_traced':
+                args = cli.build_parser().parse_args(argv)
+                core.run(dataclasses.replace(cli.config_from_args(args), profile_dir=td / 'profile'))
+                rc = 0
+            else:
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if rc != 0:
+                raise AssertionError(f'cli.main exited {rc} ({title})')
+            want = {'phase1_z': want_b1[title.removesuffix('_traced')], 'phase1_zc': 0,
+                    'phase1_pfx': 0}
+            if launches != want:
+                raise AssertionError(f'{title} complete-genome run launches {launches}, expected {want}')
+            busy = re.search(r'Device busy ([\d.]+) ms', (td / title / 'seqwin.log').read_text())
+            runs[title] = dict(wall_s=wall, phases_s=log_phases(td / title / 'seqwin.log'),
+                               launches=launches, device_busy_ms=float(busy.group(1)) if busy else None,
+                               n_signatures=(td / title / 'signatures.fasta').read_bytes().count(b'>'))
+        for title in titles[1:]:
+            differ = _differing(td / 'normal', td / title, FILES)
+            if differ:
+                raise AssertionError(f'complete genomes: {title} and the normal run differ in {differ}')
+        if not runs['normal']['n_signatures']:
+            raise AssertionError('complete genomes: no signature')
+    for title, r in runs.items():
+        log(f"[phase6 low-memory] {n_tar} + {n_neg} complete genomes x {genome_len} bp, cli.main "
+            f"-p 8{'' if title == 'normal' else ' --low-memory'} ({title}): {r['wall_s']:.2f} s "
+            f"wall; phases (s) {json.dumps(r['phases_s'])}; {r['n_signatures']} signatures; "
+            f"launches {r['launches']}"
+            + (f"; device busy {r['device_busy_ms']:.3f} ms (torch.profiler)"
+               if r['device_busy_ms'] is not None else '') + f'; on {card}')
+    log('[phase6 low-memory] --low-memory byte-equal to the normal run: ' + ', '.join(FILES))
+    return runs
+
+
+def phase_long_record(seed: int, devices, card: str) -> dict:
+    """Phase 6 (2): one ~100 Mbp record and three short records (three
+    assemblies): the default budget (the record in halo'd blocks), one
+    2^27-base chunk, and `build_distributed` over ``devices`` (the record
+    sequence-sharded), byte-equal, each held to its plan's launches."""
+    import torch
+
+    from seqwin_tpu_torch.graph import build
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
+    from seqwin_tpu_torch.parallel import build_distributed
+    from seqwin_tpu_torch.parallel.distributed import sharded_block_plan
+
+    rng = np.random.default_rng(seed + 61)
+    long_len = LONG_LEN
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        chrom = rng.integers(0, 4, size=long_len).astype(np.uint8)
+        for s in rng.integers(0, long_len - 10_000, size=20):
+            chrom[s:s + int(rng.integers(1, 10_000))] = 4
+        short = [rng.integers(0, 4, size=n).astype(np.uint8) for n in (1_000_000, 500_000, 2_000_000)]
+        paths = [td / 'chrom.fasta', td / 'a1.fasta', td / 'a2.fasta']
+        write_fasta(paths[0], [('chrom', chrom)])
+        write_fasta(paths[1], [('a1_0', short[0]), ('a1_1', short[1])])
+        write_fasta(paths[2], [('a2_0', short[2])])
+        targets = [True, True, False]
+        records, _ = parse_records(paths)
+        n_blocks = len(sharded_block_plan(records[0], K, W, len(devices)) or [None])
+        results, runs = {}, {}
+        for label, budget in (('blocks', None), ('one_chunk', 1 << 27)):
+            if budget:
+                os.environ['SEQWIN_TPU_TORCH_CHUNK_BASES'] = str(budget)
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                results[label] = build(paths, K, W, targets, n_cpu=8)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = read_launches()
+            finally:
+                os.environ.pop('SEQWIN_TPU_TORCH_CHUNK_BASES', None)
+            want = {'phase1_z': expected_scans(records, budget or DEFAULT_CHUNK_BASES),
+                    'phase1_zc': 0, 'phase1_pfx': 0}
+            if launches != want:
+                raise AssertionError(f'long record ({label}) launches {launches}, expected {want}')
+            runs[label] = dict(secs=secs, launches=launches)
+        reset_launches()
+        t0 = time.perf_counter()
+        graph, offsets, ids = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        kmers, edges = graph.materialize()
+        want = {'phase1_z': n_blocks, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}
+        if launches != want or not graph.n_chunks:
+            raise AssertionError(f'sequence-sharded long record launches {launches}, expected {want}')
+        runs['sharded'] = dict(secs=secs, launches=launches)
+        check_no_sync(paths, devices)
+    _assert_same_build('long record: blocks vs one chunk', results['blocks'], results['one_chunk'])
+    _assert_same_build('long record: sequence-sharded vs blocks',
+                       (kmers, graph.nodes, edges, offsets, ids), results['blocks'])
+    n_kmers = len(results['blocks'][0])
+    for label, r in runs.items():
+        log(f"[phase6 long-record] {long_len} bp record + 3.5 Mbp, {label}"
+            + (f" over {[str(d) for d in devices]}" if label == 'sharded' else '')
+            + f": {r['secs']:.2f} s, launches {r['launches']}; on {card}")
+    log(f'[phase6 long-record] blocks, one chunk and sequence sharding byte-equal '
+        f'(kmers={n_kmers} nodes={len(graph.nodes)} edges={len(edges)})')
+    return runs
+
+
+def phase_multi_low_memory(paths, targets, devices) -> dict:
+    """Phase 6 (3): the 192 Mbp data through `build_distributed` over
+    ``devices`` with ``low_memory`` (whole-assembly batches of at least
+    len(devices) x 2^22 bases, merged on the host), byte-equal to the
+    single-device build; B2 and B3 once per shard stream with bases in
+    each batch, B1 never."""
+    import torch
+
+    from seqwin_tpu_torch.graph import build
+    from seqwin_tpu_torch.graph.build import LOW_MEMORY_CHUNK_BASES
+    from seqwin_tpu_torch.parallel import build_distributed
+    from seqwin_tpu_torch.parallel.distributed import partition_records
+
+    n_dev = len(devices)
+    records, _ = parse_records(paths)  # one record per assembly here
+    shards, batch = 0, []
+    for n in [len(c) for c in records] + [None]:
+        if n is not None:
+            batch.append(n)
+        if batch and (n is None or sum(batch) >= n_dev * LOW_MEMORY_CHUNK_BASES):
+            of = partition_records(batch, n_dev)
+            shards += sum(any(b for b, d in zip(batch, of) if d == j) for j in range(n_dev))
+            batch = []
+    del records
+    single = build(paths, K, W, targets, n_cpu=8)
+    reset_launches()
+    t0 = time.perf_counter()
+    graph, offsets, ids = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True,
+                                            low_memory=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    kmers, edges = graph.materialize()
+    _assert_same_build('multi-device low memory vs single-device build',
+                       (kmers, graph.nodes, edges, offsets, ids), single)
+    want = {'phase1_z': 0, 'phase1_zc': shards, 'phase1_pfx': shards}
+    if launches != want or graph.n_chunks != shards:
+        raise AssertionError(f'multi-device low memory launches {launches}, expected {want}')
+    log(f'[phase6 multi-low-memory] 192 Mbp over {[str(d) for d in devices]} with low_memory: '
+        f'byte-equal to the single-device build in {secs:.2f} s; launches {launches}')
+    return dict(secs=secs, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -872,12 +1144,21 @@ def main() -> int:
         kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
         phase_small(args.seed, devices)
         main_res = phase_main(paths, targets, args.profile, card, devices, Path(td))
+        multi_low = phase_multi_low_memory(paths, targets, devices)
     phase_pipeline_reduced(args.seed)
     pipe = phase_pipeline_full(args.seed, args.profile, card)
+    low = phase_low_memory_cli(args.seed, args.profile, card)
+    long_rec = phase_long_record(args.seed, devices, card)
     for kern in kernels:
-        path = 'single' if kern['name'] == 'phase1_z' else 'multi'
-        kern['launches'] = main_res[path]['launches'][kern['name']]
-        kern['pipeline_launches'] = pipe['launches'][kern['name']]
+        kname = kern['name']
+        path = 'single' if kname == 'phase1_z' else 'multi'
+        kern['launches'] = main_res[path]['launches'][kname]
+        kern['pipeline_launches'] = pipe['launches'][kname]
+        kern['phase6_launches'] = {
+            'complete_genomes_normal': low['normal']['launches'][kname],
+            'complete_genomes_low_memory': low['low_memory']['launches'][kname],
+            **{f'long_record_{k}': v['launches'][kname] for k, v in long_rec.items()},
+            'multi_device_low_memory': multi_low['launches'][kname]}
     log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {

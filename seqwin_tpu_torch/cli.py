@@ -3,10 +3,11 @@
 Counterpart: `seqwin_tpu/cli.py`, with the same option surface (flags,
 dests, defaults, choices), implemented with argparse. Flag inversions
 preserved: --no-mash -> run_mash=False, --no-blast -> run_blast=False,
---no-gzip -> gzip=False. The run goes to the GPU; without one, and for the
-options the port does not have yet (``--low-memory``, ``--backend
-numpy|oracle``, ``--sketch-mode device``), it stops with a message and
-exit code 1.
+--no-gzip -> gzip=False. The run goes to the GPU, ``--low-memory`` with
+smaller chunks (2^22 bases; longer records in halo'd blocks). Without a
+GPU, and for the option the port does not have yet (``--sketch-mode
+device``), it stops with a message and exit code 1. ``--backend
+numpy|oracle`` builds the graph on the host and runs without a GPU.
 """
 from __future__ import annotations
 
@@ -77,12 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
     g_misc.add_argument('--threads', '-p', dest='n_cpu', type=int, default=4,
                         help='Number of parallel host processes/threads.')
     g_misc.add_argument('--low-memory', action='store_true',
-                        help='Reduce peak memory (smaller device chunks; not in this port yet).')
+                        help='Reduce peak memory (smaller device chunks).')
     g_misc.add_argument('--backend', default='auto',
                         choices=('auto', 'xla', 'numpy', 'oracle'),
                         help='Compute backend for the graph build (auto and xla: the '
-                             'GPU build; numpy and oracle: host references, not in '
-                             'this port yet).')
+                             'GPU build; numpy and oracle: host references, no GPU '
+                             'needed).')
     g_misc.add_argument('--devices', type=int, default=1,
                         help='GPUs for the graph build: 0 = every card, 1 = one card, '
                              'N>1 = N cards.')

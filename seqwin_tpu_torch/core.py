@@ -141,8 +141,9 @@ class Seqwin:
 
 def run(config: Config) -> Seqwin:
     """Run the full pipeline for a config. Without ``config.device`` the run
-    needs a GPU, and fails before writing anything when there is none."""
-    if not config.download_only:
+    needs a GPU, and fails before writing anything when there is none; the
+    host builds (``device_backend='numpy'|'oracle'``) need no device."""
+    if not config.download_only and config.device_backend not in ('numpy', 'oracle'):
         resolve_device(config.device)
     seqwin = Seqwin(config)
     if not config.download_only:

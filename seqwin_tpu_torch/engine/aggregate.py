@@ -187,8 +187,8 @@ class DeviceGraph:
 
 
 class HostGraph:
-    """Host-array implementation of the `DeviceGraph` interface (empty
-    builds)."""
+    """Host-array implementation of the `DeviceGraph` interface (empty,
+    multi-device and host builds)."""
 
     def __init__(self, kmers: np.ndarray, nodes: np.ndarray, edges: np.ndarray,
                  n_chunks: int = 0):
@@ -230,8 +230,12 @@ def aggregate_device(chunks, is_target: np.ndarray, defer: bool = False):
 
     Args:
         chunks: list of (e_oh, e_pos, e_rec, count, e_asm) from
-            `hybrid.scan_chunk_device`, in global scan order; records never
-            span chunks.
+            `hybrid.scan_chunk_device` (or `hybrid.scan_blocks`,
+            `minimizer.scan_chunk_sort`), exact-length streams in global
+            scan order. A record split into blocks spans several chunks;
+            its junction edges need no extra pairs, as the last kept
+            emission of one block and the first of the next sit side by
+            side in the concatenated stream, with the same record index.
         is_target: bool[A].
         defer: return a `DeviceGraph` (nodes on host, kmers/edges on the
             device) instead of the (kmers, nodes, edges) tuple.

@@ -3,8 +3,12 @@ irregular windows patched by the host.
 
 Counterpart: `seqwin_tpu/engine/hybrid.py`. The host prep is copied as-is
 (`_host_layout`, `_merge_intervals`, `_SparseValidity`,
-`_irregular_positions`, `host_patches`, `_asm_table`); the device side
-(`_emission`, `_canon_at_emitted`, `scan_chunk_device`) is ported to torch.
+`_irregular_positions`, `host_patches`, `_asm_table`); `_record_block_plan`
+gives the same plan from sparse ranks; the device side (`_emission`,
+`_canon_at_emitted`, `scan_chunk_device`, `_block_adjust`,
+`scan_record_blocks`) is ported to torch. A record longer than the chunk
+budget is scanned in halo'd blocks, one kernel B1 launch each
+(`scan_blocks`).
 
 - A window ending at valid k-mer position ``p`` whose last ``w`` positions are
   all valid k-mers of one record is clean: its argmin runs directly in
@@ -395,6 +399,99 @@ def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
         codes_d, eidx, k, torch.from_numpy(starts).to(dev), rec_base,
         torch.from_numpy(asm_tab).to(dev))
     return e_oh, e_pos, e_rec, int(eidx.numel()), e_asm
+
+
+def _record_block_plan(codes: np.ndarray, k: int, w: int, budget: int):
+    """Host: split one oversized record into exact scan blocks with halos.
+
+    Each block re-scans a halo of exactly w-1 valid k-mers preceding its
+    first new window, so every window the block emits for is fully visible.
+    Returns [(slice_start, slice_stop), ...] in record coordinates, or None
+    when splitting is degenerate (few valid k-mers). The JAX package's plan;
+    the valid k-mer positions are ranked through the merged intervals of the
+    invalid ones (`_SparseValidity`) instead of a prefix sum over the whole
+    record, which took most of a low-memory build's host time.
+    """
+    L = len(codes)
+    nk = L - k + 1
+    if nk <= 0:
+        return None
+    sv = _SparseValidity(codes, np.zeros(1, np.int64), k, L,
+                         inv_points=np.flatnonzero(codes > 3))
+    m = nk - int(sv.cumlen[-1])  # valid k-mer positions
+    if m < w + 1:
+        return None
+
+    def vpos(rank: int) -> int:
+        return int(sv.pos_of_rank(rank))
+
+    blocks = []
+    e_prev = w - 2  # last window-ending rank already handled
+    start = 0
+    while e_prev < m - 1:
+        # rank of the last valid k-mer at or before start + budget - k
+        x = min(start + budget - k, nk - 1)
+        e = (x + 1 - int(sv.invalid_leq(x)) if x >= 0 else 0) - 1
+        e = min(max(e, e_prev + 1), m - 1)
+        blocks.append((start, min(L, vpos(e) + k)))
+        start = vpos(min(max(0, e - w + 2), m - 1))  # w-1 valid-kmer halo
+        e_prev = e
+    return blocks
+
+
+def _block_adjust(res, b0: int, carry: int):
+    """Rebase one block's exact-length emission streams (a
+    `scan_chunk_device` result) to record coordinates and drop the halo's
+    re-emissions: positions <= carry, always a prefix since emissions
+    ascend. Returns the kept (e_oh, e_pos, e_rec, count, e_asm), count 0 when
+    the block keeps nothing, and the carry after the block (the last kept
+    position so far)."""
+    e_oh, e_pos, e_rec, count, e_asm = res
+    if not count:
+        return res, carry
+    gpos = e_pos + b0
+    n_drop, last = torch.stack([(gpos <= carry).sum(), gpos[-1]]).tolist()
+    return ((e_oh[n_drop:], gpos[n_drop:], e_rec[n_drop:], count - n_drop, e_asm[n_drop:]),
+            max(carry, last))
+
+
+def scan_blocks(codes: np.ndarray, plan, k: int, w: int, rec_idx: int,
+                record_offsets, devices) -> list:
+    """Scan one record by its block ``plan`` (`_record_block_plan`), block i
+    with kernel B1 on ``devices[i]``, in plan order, the carry kept on the
+    host. A degenerate plan (None or one block) scans the record whole on
+    ``devices[0]``. Returns one `scan_chunk_device` result per launch, each
+    on its block's device, ``e_pos`` in record coordinates; concatenated in
+    order they are the whole record's emission streams."""
+    if plan is None or len(plan) <= 1:
+        return [scan_chunk_device([codes], k, w, rec_idx, record_offsets, device=devices[0])]
+    out, carry = [], -1
+    for (b0, b1), dev in zip(plan, devices):
+        kept, carry = _block_adjust(scan_chunk_device(
+            [codes[b0:b1]], k, w, rec_idx, record_offsets, device=dev), b0, carry)
+        out.append(kept)
+    return out
+
+
+def scan_record_blocks(codes: np.ndarray, k: int, w: int, rec_idx: int, budget: int,
+                       record_offsets=None, device=None) -> list:
+    """Exact chunked scan of ONE record larger than the chunk budget, on
+    ``device``: halo'd blocks of at most ``budget`` bases (`scan_blocks`).
+
+    The rightmost-min window argmin position is monotone non-decreasing as
+    the window slides, so the emission state at any cut is one scalar, the
+    last emitted position (carry); each block is scanned with a halo of w-1
+    preceding valid k-mers, and its candidates at positions <= carry are
+    exactly the halo's re-emissions. The junction edges between blocks need
+    no bridge: the streams are exact-length, so the last kept emission of
+    one block and the first of the next sit side by side in the
+    concatenated stream, with the same record index.
+    """
+    codes = np.asarray(codes)
+    plan = _record_block_plan(codes, k, w, budget)
+    dev = resolve_device(device)
+    return scan_blocks(codes, plan, k, w, rec_idx, record_offsets,
+                       [dev] * (len(plan) if plan else 1))
 
 
 def _bsearch_rows(flat, row, tgt, ts: int, side_left: bool):

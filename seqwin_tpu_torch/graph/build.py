@@ -1,7 +1,7 @@
 """End-to-end minimizer graph construction.
 
-Counterpart: `seqwin_tpu/graph/build.py` (`build`, `build_deferred`, the
-single-device path of `_build_impl`, `kept_node_layout`, `filter_kmers`).
+Counterpart: `seqwin_tpu/graph/build.py` (`build`, `build_deferred`,
+`_build_impl`, `_build_numpy`, `kept_node_layout`, `filter_kmers`).
 
     host FASTA ingest -> base-code streams
       -> chunked scan on the device (`engine/hybrid.scan_chunk_device`)
@@ -9,11 +9,16 @@ single-device path of `_build_impl`, `kept_node_layout`, `filter_kmers`).
       -> numpy arrays in the output contract.
 
 Records are packed into chunks of at most ``SEQWIN_TPU_TORCH_CHUNK_BASES``
-bases (default 2^25), in global scan order, so the output is the same for
-any chunking. ``devices != 1`` takes the multi-device build
+bases (default 2^25; ``LOW_MEMORY_CHUNK_BASES``, 2^22, with ``low_memory``),
+in global scan order, so the output is the same for any chunking. A record
+longer than the budget is scanned alone in halo'd blocks
+(`engine/hybrid.scan_record_blocks`). ``SEQWIN_TPU_TORCH_SCAN=sort`` scans
+the chunks with the plain torch sort engine (`engine/minimizer.py`) instead,
+which does not split records. ``devices != 1`` takes the multi-device build
 (`parallel/distributed.py`) over that many cards of this host, with the
-same output. Paths this slice does not port raise `NotImplementedError`
-naming their ROADMAP item.
+same output. ``backend='numpy'|'oracle'`` builds on the host with
+`ops/host_build.py` or `ops/oracle.py` and touches no device. Multi-host
+builds raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,16 +32,18 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
-from ..engine.aggregate import aggregate_device
-from ..engine.hybrid import scan_chunk_device
-from ..io.fasta import U32_MAX, iter_assemblies
+from ..engine.aggregate import HostGraph, aggregate_device
+from ..engine.hybrid import scan_chunk_device, scan_record_blocks
+from ..engine.minimizer import scan_chunk_sort
+from ..io.fasta import U32_MAX, iter_assemblies, parse_fasta_codes
 from ..parallel.distributed import build_distributed
 from .dtypes import KMER_DTYPE
 
 logger = logging.getLogger(__name__)
 
-# Max bases per device scan call.
+# Max bases per device scan call; read when a build starts.
 DEFAULT_CHUNK_BASES = 1 << 25
+LOW_MEMORY_CHUNK_BASES = 1 << 22
 
 
 def build(
@@ -54,6 +61,9 @@ def build(
     (default: the GPU; raises when there is none). ``devices`` shards the
     build over that many cards (0: all of them; capped at the cards
     present); with ``device='cpu'`` the shards all run on the CPU.
+    ``low_memory`` cuts the chunk budget to ``LOW_MEMORY_CHUNK_BASES`` (and
+    the multi-device build into batches of whole assemblies);
+    ``backend='numpy'|'oracle'`` builds on the host and needs no device.
 
     Returns:
         (kmers, nodes, edges, record_offsets, record_ids)
@@ -84,22 +94,13 @@ def build_deferred(
     """`build` variant returning (graph, record_offsets, record_ids) where
     ``graph`` keeps the k-mer stream and edges on the device
     (`engine.aggregate.DeviceGraph`; ``graph.nodes`` is on the host). The
-    multi-device build hands back host arrays in an
+    multi-device and host builds hand back host arrays in an
     `engine.aggregate.HostGraph` of the same interface."""
     if keep_codes:
         raise NotImplementedError('keep_codes: ROADMAP queue A12 (device sketches)')
     return _build_impl(assembly_paths, kmerlen, windowsize, is_targets,
                        n_cpu=n_cpu, low_memory=low_memory, backend=backend,
                        defer=True, devices=devices, device=device)
-
-
-def _check_supported(low_memory: bool, backend: str) -> None:
-    if backend in ('numpy', 'oracle'):
-        raise NotImplementedError(f"backend={backend!r}: ROADMAP queue A10 (host-only backends)")
-    if low_memory:
-        raise NotImplementedError('low_memory: ROADMAP queue A8 (long records)')
-    if os.environ.get('SEQWIN_TPU_MULTIHOST') is not None:
-        raise NotImplementedError('multi-host build: ROADMAP queue A13 (multi-host half)')
 
 
 def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
@@ -120,20 +121,30 @@ def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
 def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 n_cpu: int, low_memory: bool, backend: str, defer: bool,
                 devices: int = 1, device=None):
-    dev = resolve_device(device)
-    _check_supported(low_memory, backend)
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
     if len(paths) != len(targets):
         raise ValueError('assembly_paths and is_targets must have the same length')
     if len(paths) > U32_MAX:
         raise ValueError('Number of input assemblies exceeds uint32 range')
+    if backend in ('numpy', 'oracle'):
+        kmers, nodes, edges, offsets, record_ids = _build_numpy(
+            paths, kmerlen, windowsize, targets, oracle=backend == 'oracle')
+        if defer:
+            return HostGraph(kmers, nodes, edges), offsets, record_ids
+        return kmers, nodes, edges, offsets, record_ids
+    dev = resolve_device(device)
+    if os.environ.get('SEQWIN_TPU_MULTIHOST') is not None:
+        raise NotImplementedError('multi-host build: ROADMAP queue A13 (multi-host half)')
     if devices != 1:
         shards = _shard_devices(devices, dev)
         if len(shards) > 1:
             return build_distributed(paths, kmerlen, windowsize, targets, shards,
-                                     n_cpu=n_cpu, defer=defer)
-    chunk_budget = int(os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
+                                     n_cpu=n_cpu, defer=defer, low_memory=low_memory)
+    use_sort_engine = os.environ.get('SEQWIN_TPU_TORCH_SCAN', 'hybrid') == 'sort'
+    scan_chunk = scan_chunk_sort if use_sort_engine else scan_chunk_device
+    chunk_budget = LOW_MEMORY_CHUNK_BASES if low_memory else int(
+        os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
 
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
@@ -146,7 +157,7 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         nonlocal chunk_codes, chunk_rec_base, chunk_bases
         if not chunk_codes:
             return
-        chunk_results.append(scan_chunk_device(
+        chunk_results.append(scan_chunk(
             chunk_codes, kmerlen, windowsize, chunk_rec_base,
             record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev))
         chunk_rec_base += len(chunk_codes)
@@ -156,11 +167,16 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     for ids, codes_list in iter_assemblies(paths, n_cpu):
         record_ids.append(tuple(ids))
         record_offsets.append(record_offsets[-1] + len(ids))
-        for rid, codes in zip(ids, codes_list):
-            if len(codes) > chunk_budget:
-                raise NotImplementedError(
-                    f'record {rid} ({len(codes)} bases) exceeds the chunk budget '
-                    f'({chunk_budget}): ROADMAP queue A8 (long records)')
+        for codes in codes_list:
+            if not use_sort_engine and len(codes) > chunk_budget:
+                # a record longer than the budget: its own halo'd blocks,
+                # in scan order after the chunk before it
+                flush()
+                chunk_results.extend(scan_record_blocks(
+                    codes, kmerlen, windowsize, chunk_rec_base, chunk_budget,
+                    record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev))
+                chunk_rec_base += 1
+                continue
             if chunk_bases + len(codes) > chunk_budget and chunk_codes:
                 flush()
             chunk_codes.append(codes)
@@ -173,6 +189,26 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     if defer:
         return res, offsets, record_ids
     kmers, nodes, edges = res
+    return kmers, nodes, edges, offsets, record_ids
+
+
+def _build_numpy(paths, kmerlen, windowsize, targets, oracle=False):
+    """Device-free reference backends: the vectorized NumPy builder
+    (`ops/host_build.py`, ``backend='numpy'``) or the per-position oracle
+    (`ops/oracle.py`, ``backend='oracle'``, slow -- differential tests
+    only). Returns (kmers, nodes, edges, record_offsets, record_ids)."""
+    if oracle:
+        from ..ops.oracle import build_graph
+    else:
+        from ..ops.host_build import build_graph_vec as build_graph
+
+    record_ids: list[tuple[str, ...]] = []
+    record_seqs: list[list[np.ndarray]] = []
+    for p in paths:
+        ids, codes_list = parse_fasta_codes(p)
+        record_ids.append(tuple(ids))
+        record_seqs.append(codes_list)
+    kmers, nodes, edges, offsets = build_graph(record_seqs, kmerlen, windowsize, targets)
     return kmers, nodes, edges, offsets, record_ids
 
 

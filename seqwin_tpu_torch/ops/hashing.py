@@ -48,6 +48,12 @@ def _build_code_tab() -> np.ndarray:
 CODE_TAB = _build_code_tab()
 
 
+def srol1(x: int) -> int:
+    """One split left-rotation (`hashing_internals.hpp:29-35`)."""
+    m = ((x & 0x8000000000000000) >> 30) | ((x & 0x100000000) >> 32)
+    return ((x << 1) & 0xFFFFFFFDFFFFFFFF) | m
+
+
 def srol(x: int, d: int) -> int:
     """Split left-rotation by ``d`` (low 33 and high 31 bits independently)."""
     d33 = d % 33

@@ -5,9 +5,11 @@ owners, and each owner reduces its bucket.
 Counterpart: `seqwin_tpu/parallel/distributed.py` (`_hash_bucket`,
 `_pair_boundaries`, `_pair_bucket`, `_pair_bucket_host`, `_route_blocks`,
 `_exchange`, `_count_step`, `_shard_step`, `partition_records`,
-`_shard_layout`, `build_distributed_arrays`, `build_distributed`). Where the
-JAX package runs one shard_map program over a device mesh, the port takes a
-list of torch devices, one per shard; a device may appear more than once.
+`_shard_layout`, `_assign_with_oversized`, `scan_record_sharded`,
+`build_distributed_arrays`, `merge_graph_parts`, `build_distributed`).
+Where the JAX package runs one shard_map program over a device mesh, the
+port takes a list of torch devices, one per shard; a device may appear more
+than once.
 
 1. **Host prep**: a contiguous, load-balanced record partition, and per
    shard the augmented byte stream, record starts and irregular-window
@@ -28,13 +30,20 @@ list of torch devices, one per shard; a device may appear more than once.
    monotonically, so the owners' outputs concatenate into the globally
    sorted arrays, byte-equal to the single-device build.
 
-Not ported here, each raising `NotImplementedError` with its ROADMAP item:
-records above the per-shard sequence budget (sequence sharding, A8) and
-multi-host builds (A13); `low_memory` is refused by `graph.build` (A8).
+A record above the per-shard sequence budget (twice the balanced share) is
+sequence-sharded: `scan_record_sharded` splits it into at most one halo'd
+block per shard (`engine/hybrid.scan_blocks`, kernel B1 and the mask
+extraction on each), and its emission stream joins the routing of the shard
+it terminates (`_assign_with_oversized`), after that shard's own stream.
+``low_memory`` builds batches of whole assemblies of at least
+``len(devices) * LOW_MEMORY_CHUNK_BASES`` bases one after another and merges
+them on the host (`merge_graph_parts`). Multi-host builds (A13) are not
+ported; `graph.build` refuses them.
 """
 from __future__ import annotations
 
 import functools
+import logging
 
 import numpy as np
 import torch
@@ -51,14 +60,18 @@ from ..engine.aggregate import (
 from ..engine.hybrid import (
     _cummax_rows,
     _emission_mask,
+    _record_block_plan,
     chunk_host_prep,
     out_hash,
+    scan_blocks,
     scan_phase2_pfx,
 )
 from ..engine.phase1 import _shift_right, phase1_pfx, phase1_zc
 from ..io.fasta import iter_assemblies
 from ..graph.dtypes import EDGE_DTYPE, KMER_DTYPE, NODE_DTYPE
 from ..ops import u64
+
+logger = logging.getLogger(__name__)
 
 
 def _bucket_counts(bucket, n_dev: int):
@@ -122,20 +135,59 @@ def partition_records(record_lengths, n_dev: int):
     return out
 
 
-def _shard_layout(record_codes, shard_of, devices, k: int, w: int, record_offsets):
-    """Host prep per shard, sized to its own records. Returns one entry per
-    shard: a dict of device tensors (codes, starts, patch_pos, patch_z,
-    asm_tab) plus its rec_base, or None for a shard without bases."""
+def _assign_with_oversized(lengths, over: set, n_dev: int):
+    """Contiguous shard assignment where every oversized record TERMINATES
+    its shard (its pre-scanned emissions are routed after the shard's own
+    stream, so no later record may share the shard). Returns the shard of
+    each record, or None when infeasible (a record follows an oversized
+    record on the already-last shard)."""
+    shard_of = np.zeros(len(lengths), dtype=np.int32)
+    norm_total = sum(ln for i, ln in enumerate(lengths) if i not in over)
+    target = norm_total / n_dev if n_dev else 0
+    d, acc, closed = 0, 0, False
+    glob_acc = 0
+    for i, ln in enumerate(lengths):
+        if i in over:
+            shard_of[i] = d
+            closed = True
+            continue
+        if closed:
+            if d >= n_dev - 1:
+                return None
+            d += 1
+            closed = False
+        # >= like partition_records: the strict test leaves one extra record
+        # per shard with equal-size records
+        elif acc > 0 and glob_acc >= target * (d + 1) and d < n_dev - 1:
+            d += 1
+            acc = 0
+        shard_of[i] = d
+        acc += int(ln)
+        glob_acc += int(ln)
+    return shard_of
+
+
+def _shard_layout(record_codes, shard_of, devices, k: int, w: int, record_offsets,
+                  rec_index=None):
+    """Host prep per shard, sized to its own records. ``rec_index`` is the
+    global index of each record (default: its position in
+    ``record_codes``); a shard's records are consecutive in it. Returns one
+    entry per shard: a dict of device tensors (codes, starts, patch_pos,
+    patch_z, asm_tab) plus its rec_base, or None for a shard without
+    bases."""
+    if rec_index is None:
+        rec_index = np.arange(len(record_codes))
     shards = []
-    rec_base = 0
     for d, dev in enumerate(devices):
-        recs = [c for c, s in zip(record_codes, shard_of) if s == d]
+        mine = np.flatnonzero(np.asarray(shard_of) == d)
+        recs = [record_codes[i] for i in mine]
         total = sum(len(c) for c in recs)
         if total >= 1 << 31:  # phase 1 writes stream positions as int32
-            raise NotImplementedError(
-                f'shard {d} holds {total} bases, past int32 stream positions: '
-                'ROADMAP queue A8 (long inputs)')
+            raise ValueError(
+                f'shard {d} holds {total} bases, past int32 stream positions; '
+                'low_memory builds the input in smaller batches')
         if total:
+            rec_base = int(rec_index[mine[0]])
             codes, starts, irr_pos, patch_z, asm_tab = chunk_host_prep(
                 recs, k, w, rec_base, record_offsets)
             shards.append(dict(
@@ -145,8 +197,35 @@ def _shard_layout(record_codes, shard_of, devices, k: int, w: int, record_offset
                     ('patch_z', patch_z), ('asm_tab', asm_tab))}))
         else:
             shards.append(None)
-        rec_base += len(recs)
     return shards
+
+
+def sharded_block_plan(codes: np.ndarray, k: int, w: int, n_dev: int):
+    """The block plan of a sequence-sharded record: `_record_block_plan`
+    with the budget grown x1.3 from an even split until the plan has at
+    most ``n_dev`` blocks (None: scan the record whole)."""
+    budget = max(1 << 12, -(-len(codes) // n_dev))
+    plan = _record_block_plan(codes, k, w, budget)
+    while plan is not None and len(plan) > n_dev:
+        budget = int(budget * 1.3)
+        plan = _record_block_plan(codes, k, w, budget)
+    return plan
+
+
+def scan_record_sharded(codes: np.ndarray, k: int, w: int, devices, rec_idx: int,
+                        record_offsets, out_device):
+    """Scan ONE record split across ``devices``: block d of
+    `sharded_block_plan` with kernel B1 on ``devices[d]``, the carry of the
+    earlier blocks resolved on the host. Returns the record's emission
+    streams (oh, pos, rec, asm) on ``out_device``, equal to the scan of the
+    whole record, or None when it emits nothing."""
+    codes = np.asarray(codes)
+    plan = sharded_block_plan(codes, k, w, len(devices))
+    blocks = [b for b in scan_blocks(codes, plan, k, w, rec_idx, record_offsets, devices)
+              if b[3]]
+    if not blocks:
+        return None
+    return tuple(torch.cat([b[i].to(out_device) for b in blocks]) for i in (0, 1, 2, 4))
 
 
 def _count_step(codes, starts, patch_pos, patch_z, k: int, w: int, n_dev: int):
@@ -171,6 +250,16 @@ def _count_step(codes, starts, patch_pos, patch_z, k: int, w: int, n_dev: int):
     e_hist = _bucket_counts(_hash_bucket(ohz, emit, n_dev), n_dev)
     p_hist = _bucket_counts(_pair_bucket(p_u, pair_ok, n_dev), n_dev)
     return emit.sum(), _emission_mask(z_clean).sum(), e_hist, p_hist
+
+
+def _stream_hists(e_oh, e_rec, n_dev: int):
+    """Minimizer and adjacency-pair histograms of an exact-length emission
+    stream (a sequence-sharded record's), as the pre-pass counts them."""
+    e_hist = _bucket_counts(_hash_bucket(e_oh, torch.ones_like(e_rec, dtype=torch.bool), n_dev),
+                            n_dev)
+    p_hist = _bucket_counts(_pair_bucket(u64.umin(e_oh[:-1], e_oh[1:]), e_rec[:-1] == e_rec[1:],
+                                         n_dev), n_dev)
+    return e_hist, p_hist
 
 
 def _route_blocks(bucket, payloads, sizes: list[int]):
@@ -209,27 +298,44 @@ def _route_shard(e_oh, e_pos, e_rec, e_asm, e_sizes: list[int], p_sizes: list[in
 
 
 def _shard_step(shard, k: int, w: int, emit_cap: int, count: int,
-                e_sizes: list[int], p_sizes: list[int], devices):
-    """Build step of one shard on kernel B3: pfx extraction, then
-    `_route_shard`. Returns the node and pair blocks and the shard's checks,
-    {name: (device tensor, the value the pre-pass expects)}."""
-    zpfx, lrank, _ = phase1_pfx(shard['codes'], k, w)
-    e_oh, e_pos, e_rec, dev_count, e_asm = scan_phase2_pfx(
-        zpfx, lrank, shard['codes'], shard['patch_pos'], shard['patch_z'],
-        shard['starts'], shard['rec_base'], shard['asm_tab'], emit_cap, count, k)
+                e_sizes: list[int], p_sizes: list[int], devices, extra=None):
+    """Build step of one shard on kernel B3: pfx extraction, the
+    sequence-sharded records' streams it terminates (``extra``) after it,
+    then `_route_shard`. Returns the node and pair blocks and the shard's
+    checks, {name: (device tensor, the value the pre-pass expects)}."""
+    streams, checks = [], {}
+    if shard is not None:
+        zpfx, lrank, _ = phase1_pfx(shard['codes'], k, w)
+        e_oh, e_pos, e_rec, dev_count, e_asm = scan_phase2_pfx(
+            zpfx, lrank, shard['codes'], shard['patch_pos'], shard['patch_z'],
+            shard['starts'], shard['rec_base'], shard['asm_tab'], emit_cap, count, k)
+        streams.append((e_oh, e_pos, e_rec, e_asm))
+        checks['emission counts'] = (dev_count, count)
+    if extra is not None:
+        streams.append(extra)
     node_blocks, pair_blocks, e_counts, p_counts = _route_shard(
-        e_oh, e_pos, e_rec, e_asm, e_sizes, p_sizes, devices)
-    checks = {'emission counts': (dev_count, count),
-              'minimizer block sizes': (e_counts, e_sizes),
-              'pair block sizes': (p_counts, p_sizes)}
+        *(torch.cat(c) for c in zip(*streams)), e_sizes, p_sizes, devices)
+    checks.update({'minimizer block sizes': (e_counts, e_sizes),
+                   'pair block sizes': (p_counts, p_sizes)})
     return node_blocks, pair_blocks, checks
 
 
-def _prepass(shards, k: int, w: int, n_dev: int):
+def _prepass(shards, k: int, w: int, n_dev: int, extras=None):
     """Enqueue the count pre-pass of every shard (no sync); one tuple of
-    device tensors per shard, None for a shard without bases."""
-    return [None if s is None else _count_step(
-        s['codes'], s['starts'], s['patch_pos'], s['patch_z'], k, w, n_dev) for s in shards]
+    device tensors per shard, None for a shard without bases or extras.
+    The histograms of the sequence-sharded streams a shard terminates
+    (``extras``) add to its own."""
+    out = []
+    for d, s in enumerate(shards):
+        pre = None if s is None else _count_step(
+            s['codes'], s['starts'], s['patch_pos'], s['patch_z'], k, w, n_dev)
+        x = extras[d] if extras else None
+        if x is not None:
+            x_e, x_p = _stream_hists(x[0], x[2], n_dev)
+            zero = torch.zeros((), dtype=torch.int64, device=x_e.device)
+            pre = (zero, zero, x_e, x_p) if pre is None else (*pre[:2], pre[2] + x_e, pre[3] + x_p)
+        out.append(pre)
+    return out
 
 
 def _read_prepass(pre, n_dev: int):
@@ -242,7 +348,7 @@ def _read_prepass(pre, n_dev: int):
     return counts, e_hist, p_hist
 
 
-def _step(shards, k: int, w: int, counts, e_hist, p_hist, devices):
+def _step(shards, k: int, w: int, counts, e_hist, p_hist, devices, extras=None):
     """Enqueue the build step of every shard in source order (no sync), so
     each owner receives its blocks in scan order. Returns the blocks each
     owner received, per source, and the checks (name, shard, device
@@ -252,11 +358,12 @@ def _step(shards, k: int, w: int, counts, e_hist, p_hist, devices):
     rx_pairs = [[] for _ in range(n_dev)]
     checks = []
     for d, s in enumerate(shards):
-        if s is None:
+        x = extras[d] if extras else None
+        if s is None and x is None:
             continue
         count, clean = counts[d]
         node_blocks, pair_blocks, shard_checks = _shard_step(
-            s, k, w, max(count, clean), count, e_hist[d].tolist(), p_hist[d].tolist(), devices)
+            s, k, w, max(count, clean), count, e_hist[d].tolist(), p_hist[d].tolist(), devices, x)
         for j in range(n_dev):
             rx_nodes[j].append([b[j] for b in node_blocks])
             rx_pairs[j].append([b[j] for b in pair_blocks])
@@ -273,29 +380,61 @@ def _check_step(checks) -> None:
                 'pre-pass (the pre-pass and the build step diverged)')
 
 
+def _layout(record_codes: list[np.ndarray], record_offsets, k: int, w: int, devices,
+            rec_base0: int = 0):
+    """Host side of a build over ``devices``: the shards' stream layouts
+    (`_shard_layout`) and, per shard, the concatenated streams (oh, pos,
+    rec, asm) of the sequence-sharded records it terminates, or None. A
+    record above twice the balanced share is sequence-sharded
+    (`scan_record_sharded`: one kernel B1 launch per block); when such
+    records cannot terminate their shards, every record takes the plain
+    layout."""
+    n_dev = len(devices)
+    lengths = [len(c) for c in record_codes]
+    seq_budget = max(1 << 16, -(-2 * int(sum(lengths)) // n_dev))
+    over = {i for i, ln in enumerate(lengths) if ln > seq_budget} if n_dev > 1 else set()
+    shard_of = _assign_with_oversized(lengths, over, n_dev) if over else None
+    if over and shard_of is None:
+        logger.warning('oversized records cannot terminate their shards (too many near '
+                       'the tail); scanning them in the shard streams')
+        over = set()
+    if shard_of is None:
+        shard_of = partition_records(lengths, n_dev)
+    stream = np.array([i for i in range(len(lengths)) if i not in over], dtype=np.int64)
+    shards = _shard_layout([record_codes[i] for i in stream], shard_of[stream], devices,
+                           k, w, record_offsets, rec_index=stream + rec_base0)
+    # in scan order, each after the stream of the shard it terminates
+    extras = [None] * n_dev
+    for i in sorted(over):
+        d = int(shard_of[i])
+        x = scan_record_sharded(record_codes[i], k, w, devices, i + rec_base0,
+                                record_offsets, devices[d])
+        if x is not None:
+            extras[d] = x if extras[d] is None else tuple(
+                torch.cat(p) for p in zip(extras[d], x))
+    return shards, extras
+
+
 def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
-                             is_target, kmerlen: int, windowsize: int, devices):
+                             is_target, kmerlen: int, windowsize: int, devices,
+                             rec_base0: int = 0):
     """Multi-device build from parsed records over ``devices`` (a list of
-    torch devices, one per shard, repeats allowed). Returns (kmers, nodes,
-    edges, n_scanned): the structured arrays, byte-equal to the
-    single-device build, and the number of shards that held bases (one
-    kernel B2 and one kernel B3 launch each)."""
+    torch devices, one per shard, repeats allowed). ``record_codes`` are
+    the records from global index ``rec_base0`` on; ``record_offsets``
+    covers them. Returns (kmers, nodes, edges, n_scanned): the structured
+    arrays, byte-equal to the single-device build, and the number of
+    shards that held stream bases (one kernel B2 and one kernel B3 launch
+    each)."""
     devices = [torch.device(d) for d in devices]
     n_dev = len(devices)
     k, w = kmerlen, windowsize
-    lengths = [len(c) for c in record_codes]
-    seq_budget = max(1 << 16, -(-2 * int(sum(lengths)) // n_dev))
-    if n_dev > 1 and any(ln > seq_budget for ln in lengths):
-        raise NotImplementedError(
-            f'a record above the per-shard sequence budget ({seq_budget} bases): '
-            'ROADMAP queue A8 (sequence sharding of long records)')
-    shards = _shard_layout(record_codes, partition_records(lengths, n_dev),
-                           devices, k, w, record_offsets)
+    shards, extras = _layout(record_codes, record_offsets, k, w, devices, rec_base0)
 
     with record_function('distributed.prepass'):
-        counts, e_hist, p_hist = _read_prepass(_prepass(shards, k, w, n_dev), n_dev)
+        counts, e_hist, p_hist = _read_prepass(_prepass(shards, k, w, n_dev, extras), n_dev)
     with record_function('distributed.step'):
-        rx_nodes, rx_pairs, checks = _step(shards, k, w, counts, e_hist, p_hist, devices)
+        rx_nodes, rx_pairs, checks = _step(shards, k, w, counts, e_hist, p_hist, devices,
+                                           extras)
 
     # --- owner merge, concatenated in owner order ---
     tmask = np.asarray(is_target, dtype=bool)
@@ -320,26 +459,134 @@ def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
             sum(s is not None for s in shards))
 
 
+def merge_graph_parts(parts):
+    """Host merge of per-batch (kmers, nodes, edges) builds into the arrays
+    ONE build over all records would produce, byte-exact.
+
+    Valid whenever the batches partition WHOLE assemblies in global record
+    order: the once-per-assembly node/edge counts of disjoint assembly sets
+    add, adjacency pairs never span records (so never span batches), and
+    per-node k-mer segments concatenate in batch order = global scan order.
+    Backbone of the multi-device ``low_memory`` mode.
+    """
+    if len(parts) == 1:
+        return parts[0]
+    kmers_p = [p[0] for p in parts]
+    nodes_p = [p[1] for p in parts]
+    edges_p = [p[2] for p in parts]
+
+    # --- nodes: union by hash (each part is hash-sorted and duplicate-free;
+    # within one part fancy-index += is safe), counts add across batches ---
+    uh = np.unique(np.concatenate([n['hash'] for n in nodes_p]))
+    G = len(uh)
+    n_tar = np.zeros(G, np.uint32)
+    n_neg = np.zeros(G, np.uint32)
+    total_sizes = np.zeros(G, np.int64)
+    idx_p = []
+    for npart in nodes_p:
+        idx = np.searchsorted(uh, npart['hash'])
+        idx_p.append(idx)
+        n_tar[idx] += npart['n_tar']
+        n_neg[idx] += npart['n_neg']
+        total_sizes[idx] += (npart['stop'] - npart['start']).astype(np.int64)
+    g_stop = np.cumsum(total_sizes)
+    g_start = g_stop - total_sizes
+    nodes = np.zeros(G, dtype=NODE_DTYPE)
+    nodes['hash'] = uh
+    nodes['start'] = g_start
+    nodes['stop'] = g_stop
+    nodes['n_tar'] = n_tar
+    nodes['n_neg'] = n_neg
+
+    # --- kmers: each part's array is exactly its segments tiled in node
+    # order; scatter every segment to its node's slot, after the lengths
+    # earlier batches already placed there (batch order = scan order) ---
+    kmers = np.empty(int(g_stop[-1]) if G else 0, dtype=KMER_DTYPE)
+    filled = np.zeros(G, np.int64)
+    for kp, npart, idx in zip(kmers_p, nodes_p, idx_p):
+        if not len(kp):
+            continue
+        sizes = (npart['stop'] - npart['start']).astype(np.int64)
+        csz = np.cumsum(sizes)
+        out_start = g_start[idx] + filled[idx]
+        dst = np.repeat(out_start - (csz - sizes), sizes) + np.arange(len(kp))
+        kmers[dst] = kp
+        filled[idx] += sizes
+
+    # --- edges: union by (first, second), weights (distinct-assembly
+    # counts of disjoint assembly sets) add; output stays (first, second)
+    # ascending like every build path ---
+    alle = np.concatenate(edges_p)
+    order = np.lexsort((alle['second'], alle['first']))
+    se = alle[order]
+    if len(se):
+        new = np.ones(len(se), dtype=bool)
+        new[1:] = (se['first'][1:] != se['first'][:-1]) | (
+            se['second'][1:] != se['second'][:-1])
+        starts = np.flatnonzero(new)
+        edges = se[starts].copy()
+        wsum = np.cumsum(se['weight'].astype(np.int64))
+        stops = np.append(starts[1:], len(se))
+        prev = np.where(starts > 0, wsum[starts - 1], 0)
+        edges['weight'] = wsum[stops - 1] - prev
+    else:
+        edges = np.zeros(0, dtype=EDGE_DTYPE)
+    return kmers, nodes, edges
+
+
 def build_distributed(assembly_paths, kmerlen: int, windowsize: int, is_targets,
-                      devices, n_cpu: int = 1, defer: bool = False):
+                      devices, n_cpu: int = 1, defer: bool = False, low_memory: bool = False):
     """Multi-device graph build over ``devices`` (torch devices, one per
     shard, repeats allowed). Same output contract and bytes as
     `graph.build`: (kmers, nodes, edges, record_offsets, record_ids), or
     with ``defer`` (graph, record_offsets, record_ids) where ``graph`` is an
-    `engine.aggregate.HostGraph` whose ``n_chunks`` counts the shards that
-    held bases."""
+    `engine.aggregate.HostGraph` whose ``n_chunks`` counts the shard streams
+    that held bases, over all batches.
+
+    ``low_memory`` bounds the staged streams: assemblies are built in
+    consecutive whole-assembly batches, each closed once it reaches
+    ``len(devices) * LOW_MEMORY_CHUNK_BASES`` bases, and the per-batch
+    results merge on the host byte-exactly (`merge_graph_parts`).
+    """
+    from ..graph.build import LOW_MEMORY_CHUNK_BASES  # read at call time
+
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
+    budget = len(devices) * LOW_MEMORY_CHUNK_BASES if low_memory else None
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
-    record_codes: list[np.ndarray] = []
+    parts = []
+    batch_codes: list[np.ndarray] = []
+    batch_bases = 0
+    rec_base = 0
+
+    def flush_batch():
+        nonlocal batch_codes, batch_bases, rec_base
+        if not batch_codes:
+            return
+        # record_offsets so far covers every record of the batch
+        parts.append(build_distributed_arrays(
+            batch_codes, np.array(record_offsets, dtype=np.uintp), targets,
+            kmerlen, windowsize, devices, rec_base0=rec_base))
+        rec_base += len(batch_codes)
+        batch_codes, batch_bases = [], 0
+
     for ids, codes_list in iter_assemblies(paths, n_cpu):
         record_ids.append(tuple(ids))
         record_offsets.append(record_offsets[-1] + len(ids))
-        record_codes.extend(codes_list)
+        batch_codes.extend(codes_list)
+        batch_bases += sum(len(c) for c in codes_list)
+        if budget is not None and batch_bases >= budget:
+            flush_batch()
+    flush_batch()
     offsets = np.array(record_offsets, dtype=np.uintp)
-    kmers, nodes, edges, n_scanned = build_distributed_arrays(
-        record_codes, offsets, targets, kmerlen, windowsize, devices)
+    if parts:
+        kmers, nodes, edges = merge_graph_parts([p[:3] for p in parts])
+    else:
+        kmers = np.zeros(0, KMER_DTYPE)
+        nodes = np.zeros(0, NODE_DTYPE)
+        edges = np.zeros(0, EDGE_DTYPE)
     if defer:
-        return HostGraph(kmers, nodes, edges, n_chunks=n_scanned), offsets, record_ids
+        return (HostGraph(kmers, nodes, edges, n_chunks=sum(p[3] for p in parts)),
+                offsets, record_ids)
     return kmers, nodes, edges, offsets, record_ids

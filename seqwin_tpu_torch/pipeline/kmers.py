@@ -2,7 +2,8 @@
 
 Counterpart: `seqwin_tpu/pipeline/kmers.py`. Host orchestration over the
 port's build (`graph.build_deferred` on the card, kernel B1; with
-``devices`` above one the multi-device build, kernels B2 and B3). The
+``devices`` above one the multi-device build, kernels B2 and B3; with
+``backend='numpy'|'oracle'`` the host build). The
 penalty formula, threshold estimation and filtering order follow the
 reference, in float64 host math.
 

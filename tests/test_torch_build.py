@@ -108,18 +108,30 @@ def test_deferred_compact_kmers_matches_jax(deferred, frac):
 
 
 @pytest.mark.parametrize('kwargs,env', [
-    (dict(low_memory=True), {}),
+    (dict(low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 6000}),
     (dict(backend='numpy'), {}),
     (dict(backend='oracle'), {}),
-    (dict(devices=2, low_memory=True), {}),
+    (dict(devices=2, low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 1}),
     ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
-])
-def test_unported_paths_raise(fastas, monkeypatch, kwargs, env):
+], ids=['low_memory', 'numpy', 'oracle', 'devices_low_memory', 'long_records'])
+def test_long_record_and_host_paths_match_jax(fastas, monkeypatch, kwargs, env):
+    """Low memory (records above its budget in blocks), the host backends,
+    multi-device low memory and records above a small chunk budget: each
+    byte-equal to the JAX package's host build of the same FASTAs (the
+    oracle on three of them: its Python loops are slow)."""
+    import importlib
+
+    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
     for key, val in env.items():
-        monkeypatch.setenv(key, val)
+        if key.startswith('SEQWIN'):
+            monkeypatch.setenv(key, val)
+        else:
+            monkeypatch.setattr(build_mod, key, val)
     paths, targets = fastas
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build(paths, K, W, targets, device='cpu', **kwargs)
+    if kwargs.get('backend') == 'oracle':
+        paths, targets = paths[:3], targets[:3]
+    got = build(paths, K, W, targets, device='cpu', **kwargs)
+    _assert_build_equal(got, jax_build(paths, K, W, targets, backend='numpy'))
 
 
 @pytest.mark.parametrize('budget', [None, 30000])

@@ -1,13 +1,15 @@
 """seqwin_tpu_torch's Config and CLI against the JAX package's: the same
 validation (exception types and messages), the same `config.json`, the
-same option surface, the same Config from the same command line; the
-options the port does not have yet stop with their ROADMAP item."""
+same option surface, the same Config from the same command line; low
+memory and the host backends give the JAX package's files, and the option
+the port does not have yet stops with its ROADMAP item."""
 import argparse
 import dataclasses
 import json
 import pickle
 from enum import Enum
 
+import numpy as np
 import pytest
 import torch
 
@@ -173,24 +175,43 @@ def test_version(capsys):
 
 
 UNPORTED = {
-    'low_memory': (dict(low_memory=True), ['--low-memory'], 'A8'),
-    'numpy': (dict(device_backend='numpy'), ['--backend', 'numpy'], 'A10'),
-    'oracle': (dict(device_backend='oracle'), ['--backend', 'oracle'], 'A10'),
     'sketch_device': (dict(sketch_mode='device'), ['--sketch-mode', 'device'], 'A12'),
 }
 
 
+def _genome_lists(tmp_path, n_tar=3, n_neg=3, length=12_000):
+    """Targets from one random root with 0.5% SNPs each, non-targets from an
+    8%-diverged root with 1%, each with an N run and cut into two records;
+    the path lists."""
+    rng = np.random.default_rng(5)
+    root = rng.integers(0, 4, size=length).astype(np.uint8)
+    neg_root = root.copy()
+    idx = rng.integers(0, length, size=int(length * 0.08))
+    neg_root[idx] = (neg_root[idx] + rng.integers(1, 4, size=idx.size)) % 4
+    alphabet = np.frombuffer(b'ACGTN', np.uint8)
+    lists = []
+    for role, n, base, snp in (('tar', n_tar, root, 0.005), ('neg', n_neg, neg_root, 0.01)):
+        paths = []
+        for i in range(n):
+            g = base.copy()
+            idx = rng.integers(0, length, size=int(length * snp))
+            g[idx] = (g[idx] + rng.integers(1, 4, size=idx.size)) % 4
+            n0 = int(rng.integers(0, length - 300))
+            g[n0:n0 + int(rng.integers(10, 300))] = 4
+            cut = int(rng.integers(length // 4, 3 * length // 4))
+            p = tmp_path / f'{role}{i}.fa'
+            p.write_text(''.join(f'>{role}{i}_{j}\n{alphabet[r].tobytes().decode()}\n'
+                                 for j, r in enumerate((g[:cut], g[cut:]))))
+            paths.append(p)
+        txt = tmp_path / f'{role}.txt'
+        txt.write_text(''.join(f'{p}\n' for p in paths))
+        lists.append(txt)
+    return lists
+
+
 @pytest.fixture
 def fasta_lists(tmp_path):
-    paths = []
-    for i in range(2):
-        p = tmp_path / f'g{i}.fa'
-        p.write_text(f'>r{i}\n' + 'ACGTTGCA' * 40 + '\n')
-        paths.append(p)
-    tar, neg = tmp_path / 'tar.txt', tmp_path / 'neg.txt'
-    tar.write_text(f'{paths[0]}\n')
-    neg.write_text(f'{paths[1]}\n')
-    return tar, neg
+    return _genome_lists(tmp_path, 1, 1, 400)
 
 
 @pytest.mark.parametrize('case', list(UNPORTED))
@@ -213,3 +234,67 @@ def test_unported_options_exit_nonzero(tmp_path, fasta_lists, monkeypatch, capsy
                    '--no-mash', '--no-blast', *flags])
     assert rc == 1
     assert item in capsys.readouterr().err
+
+
+# the options that run now: Config fields, CLI flags
+OPTIONS = {
+    'low_memory': (dict(low_memory=True), ['--low-memory']),
+    'numpy': (dict(device_backend='numpy'), ['--backend', 'numpy']),
+    'oracle': (dict(device_backend='oracle'), ['--backend', 'oracle']),
+}
+K_W = dict(kmerlen=15, windowsize=20, min_len=60)
+FILES = ('assemblies.csv', 'signatures.fasta', 'signatures.csv')
+
+
+@pytest.fixture(scope='module')
+def jax_run(tmp_path_factory):
+    """Inputs and the JAX package's run on them (its host build)."""
+    import seqwin_tpu
+
+    tmp = tmp_path_factory.mktemp('options')
+    tar, neg = _genome_lists(tmp)
+    seqwin_tpu.run(seqwin_tpu.Config(tar_paths=tar, neg_paths=neg, prefix=tmp, title='jax',
+                                      run_mash=False, run_blast=False, n_cpu=1,
+                                      device_backend='numpy', **K_W))
+    assert (tmp / 'jax' / 'signatures.fasta').read_bytes().count(b'>') > 10
+    return tar, neg, tmp / 'jax'
+
+
+@pytest.fixture
+def small_low_memory_budget(monkeypatch):
+    """A low-memory budget under the record lengths, so they take the
+    block path."""
+    import importlib
+
+    monkeypatch.setattr(importlib.import_module('seqwin_tpu_torch.graph.build'),
+                        'LOW_MEMORY_CHUNK_BASES', 1500)
+
+
+@pytest.mark.parametrize('case', list(OPTIONS))
+def test_run_options_match_jax(tmp_path, jax_run, small_low_memory_budget, case):
+    """`run(Config(...))` with low memory or a host backend writes the JAX
+    package's files."""
+    tar, neg, want = jax_run
+    run(Config(tar_paths=tar, neg_paths=neg, prefix=tmp_path, title='port', run_mash=False,
+               run_blast=False, n_cpu=1, device='cpu', **K_W, **OPTIONS[case][0]))
+    for name in FILES:
+        assert (tmp_path / 'port' / name).read_bytes() == (want / name).read_bytes(), name
+
+
+@pytest.mark.parametrize('case', list(OPTIONS))
+def test_cli_options_match_jax(tmp_path, jax_run, small_low_memory_budget, monkeypatch, case):
+    """The CLI with ``--low-memory`` or ``--backend numpy|oracle`` exits 0
+    with the JAX package's files. The host backends run with no GPU at all;
+    the low-memory run is sent to the CPU (the CLI has no device option)."""
+    tar, neg, want = jax_run
+    if case == 'low_memory':
+        to_cpu = cli.config_from_args
+        monkeypatch.setattr(cli, 'config_from_args',
+                            lambda args: dataclasses.replace(to_cpu(args), device='cpu'))
+    rc = cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
+                   '--title', 'port', '--no-mash', '--no-blast', '-p', '1', '-k', '15', '-w', '20',
+                   '--min-len', '60',
+                   *OPTIONS[case][1]])
+    assert rc == 0
+    for name in FILES:
+        assert (tmp_path / 'port' / name).read_bytes() == (want / name).read_bytes(), name

@@ -237,12 +237,167 @@ def test_prepass_disagreement_raises(arrays_case, monkeypatch):
         D.build_distributed_arrays(records, offsets, targets, K, W, ['cpu'] * 2)
 
 
-def test_long_record_raises():
+# record lengths, shard count, records the build sequence-shards
+OVERSIZED = {
+    'middle': ([3000, 4000, 100_000, 2000, 5000, 3000], 4, 1),
+    'in_a_row': ([3000, 150_000, 140_000, 2000, 4000, 3000], 8, 2),
+    'first': ([100_000, 3000, 2000, 4000], 4, 1),
+    # one followed by a record on the last shard: the plain layout
+    'infeasible': ([1000] * 6 + [100_000, 1000], 3, 0),
+}
+
+
+def _oversized_case(case):
+    lengths, n_dev, n_sharded = OVERSIZED[case]
+    rng = np.random.default_rng(len(lengths) * n_dev)
+    records = _random_records(rng, lengths, n_frac=0.005)
+    for c in records:
+        if len(c) > 50_000:
+            s = int(rng.integers(0, len(c) - 20_000))
+            c[s:s + int(rng.integers(100, 20_000))] = 255
+    offsets = np.array([0, 2, len(records) - 1, len(records)], dtype=np.uintp)
+    return records, offsets, [True, False, True], n_dev, n_sharded
+
+
+@pytest.mark.parametrize('case', list(OVERSIZED))
+def test_assign_with_oversized_matches_jax(case):
+    lengths, n_dev, _ = OVERSIZED[case]
+    over = {i for i, ln in enumerate(lengths) if ln > 50_000}
+    got = D._assign_with_oversized(lengths, over, n_dev)
+    want, _ = jd._assign_with_oversized(lengths, over, n_dev)
+    assert (got is None) == (want is None) == (case == 'infeasible')
+    if got is not None:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('case', list(OVERSIZED))
+def test_oversized_records_match_jax_and_single(case, monkeypatch):
+    """Records above the per-shard budget are sequence-sharded and routed
+    after the stream of the shard they terminate: the arrays equal the JAX
+    package's `build_distributed_arrays` and the single-device build."""
+    records, offsets, targets, n_dev, n_sharded = _oversized_case(case)
+    sharded = []
+    scan = D.scan_record_sharded
+    monkeypatch.setattr(D, 'scan_record_sharded',
+                        lambda codes, *a: sharded.append(len(codes)) or scan(codes, *a))
+    got = D.build_distributed_arrays(records, offsets, targets, K, W, ['cpu'] * n_dev)
+    want = jd.build_distributed_arrays(records, offsets, targets, K, W, jd.make_mesh(n_dev))
+    chunk = scan_chunk_device(records, K, W, 0, record_offsets=offsets, device='cpu')
+    single = aggregate_device([chunk], np.asarray(targets))
+    assert len(sharded) == n_sharded
+    for a, b, c in zip(got[:3], want, single):
+        assert a.dtype == b.dtype == c.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert len(got[0]) > 1000 and (got[2]['weight'] > 1).any()
+
+
+@pytest.mark.parametrize('n_dev', [2, 3, 8])
+def test_scan_record_sharded_matches_whole_scan(n_dev):
+    """One record over n_dev shards: at most n_dev blocks, one per shard,
+    and the concatenated kept streams equal the scan of the whole record."""
+    rng = np.random.default_rng(n_dev)
+    codes = _random_records(rng, [90_000], n_frac=0.003)[0]
+    codes[30_000:52_000] = 255  # an N desert wider than a block
+    offsets = np.array([0, 3, 5], dtype=np.uintp)
+    plan = D.sharded_block_plan(codes, K, W, n_dev)
+    assert 1 < len(plan) <= n_dev
+    got = D.scan_record_sharded(codes, K, W, ['cpu'] * n_dev, 4, offsets, 'cpu')
+    want = scan_chunk_device([codes], K, W, 4, record_offsets=offsets, device='cpu')
+    for a, b in zip(got, (want[0], want[1], want[2], want[4])):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert set(got[3].tolist()) == {1} and set(got[2].tolist()) == {4}
+
+
+def test_build_distributed_arrays_rec_base0():
+    """rec_base0 globalizes record ids and assemblies (the low-memory
+    batches' bookkeeping), for stream and sequence-sharded records alike."""
     rng = np.random.default_rng(3)
-    records = _random_records(rng, [200_000, 1000, 1000])
-    with pytest.raises(NotImplementedError, match='A8'):
-        D.build_distributed_arrays(records, np.array([0, 3], np.uintp), [True], K, W,
-                                   ['cpu'] * 4)
+    records = _random_records(rng, [500, 800, 100_000, 400])
+    # records 5..8 of a larger run: assemblies span 4..9
+    offsets = np.array([0, 5, 7, 9], dtype=np.uintp)
+    targets = [True, False, True]
+    got = D.build_distributed_arrays(records, offsets, targets, K, W, ['cpu'] * 4, rec_base0=5)
+    want = jd.build_distributed_arrays(records, offsets, targets, K, W, jd.make_mesh(4),
+                                       rec_base0=5)
+    for a, b in zip(got[:3], want):
+        np.testing.assert_array_equal(a, b)
+    assert set(np.unique(got[0]['record_idx'])) == {5, 6, 7, 8}
+
+
+@pytest.fixture
+def low_memory_budget(monkeypatch):
+    """Set the low-memory chunk budget of both packages."""
+    import importlib
+
+    def set_budget(bases):
+        for name in ('seqwin_tpu.graph.build', 'seqwin_tpu_torch.graph.build'):
+            monkeypatch.setattr(importlib.import_module(name), 'LOW_MEMORY_CHUNK_BASES', bases)
+    return set_budget
+
+
+@pytest.mark.parametrize('chunk_bases', [1, 2048, 8000])
+def test_build_distributed_low_memory_matches_jax(fastas, single_build, low_memory_budget,
+                                                  chunk_bases):
+    """Whole-assembly batches closed once they reach n_dev x the budget
+    (1: one assembly per batch), merged on the host: byte-equal to the JAX
+    package's `build_distributed(low_memory=True)` and the unbatched
+    build."""
+    paths, targets = fastas
+    low_memory_budget(chunk_bases)
+    got = D.build_distributed(paths, K, W, targets, ['cpu'] * 4, low_memory=True, defer=True)
+    want = jd.build_distributed(paths, K, W, targets, mesh=jd.make_mesh(4), low_memory=True)
+    g, offsets, ids = got
+    kmers, edges = g.materialize()
+    for a, b, c in zip((kmers, g.nodes, edges, offsets), want[:4], single_build[:4]):
+        assert a.dtype == b.dtype == c.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert ids == want[4] == single_build[4]
+    # batches: a new one after the assembly that reaches 4 x chunk_bases
+    sizes = [sum(len(c) for c in _parse(p)) for p in paths]
+    batches, acc = 0, 0
+    for n in sizes:
+        acc += n
+        if acc >= 4 * chunk_bases:
+            batches, acc = batches + 1, 0
+    batches += acc > 0
+    assert g.n_chunks >= batches == {1: 5, 2048: 5, 8000: 2}[chunk_bases]
+
+
+def _parse(path):
+    from seqwin_tpu_torch.io.fasta import parse_fasta_codes
+
+    return parse_fasta_codes(str(path))[1]
+
+
+def test_build_low_memory_devices_cli_path(fastas, single_build, low_memory_budget):
+    """`build(..., low_memory=True, devices=N)` (the CLI composition) takes
+    the batched multi-device build and matches the plain build."""
+    paths, targets = fastas
+    low_memory_budget(1)
+    got = build(paths, K, W, targets, low_memory=True, devices=3, device='cpu')
+    for a, b in zip(got[:4], single_build[:4]):
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == single_build[4]
+
+
+def test_merge_graph_parts_matches_jax(arrays_case):
+    """Per-batch builds of whole assemblies merge into the single build,
+    as the JAX package's merge does; one part passes through."""
+    records, offsets, targets, single = arrays_case
+    parts = []
+    for a0, a1 in ((0, 1), (1, 3), (3, 4)):
+        r0, r1 = int(offsets[a0]), int(offsets[a1])
+        parts.append(D.build_distributed_arrays(records[r0:r1], offsets[:a1 + 1], targets,
+                                                K, W, ['cpu'] * 2, rec_base0=r0)[:3])
+    got = D.merge_graph_parts(parts)
+    want = jd.merge_graph_parts(parts)
+    for a, b, c in zip(got, want, single):
+        assert a.dtype == b.dtype == c.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert D.merge_graph_parts(parts[:1]) is parts[0]
 
 
 def test_multihost_raises(fastas, monkeypatch):
