@@ -67,6 +67,29 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    phase 5's reduced proxy, its three files byte-equal to the GPU CLI run;
    ``SEQWIN_TPU_TORCH_SCAN=sort`` on phase 3's data byte-equal to the
    hybrid build, launching no kernel.
+7. Device MinHash sketches (``--sketch-mode device``). (1) `cli.main
+   --sketch-mode device` on the card on phase 5's reduced proxy, plain and
+   with ``--seed-pattern``, each against the port's CPU run with the same
+   options: signatures.fasta, signatures.csv and assemblies.csv byte-equal.
+   (2) The same option on the 804 Mbp proxy (phase 5's data): wall time,
+   `Finished in` seconds, the threshold it computed against the minimizer
+   estimate of phase 5's run, B1 once per chunk; then the sketches of all
+   171 assemblies and their Jaccard matrix timed alone, and the card's
+   sketches of three assemblies and the whole matrix equal to the CPU's
+   (``--profile``: the sketches traced once more). (3)
+   `build_distributed(..., keep_codes=True)` over D on the reduced proxy,
+   its kept codes equal to the parse.
+8. The multi-host build: two OS processes on the card, ranks of one gloo
+   group through ``SEQWIN_TPU_MULTIHOST=127.0.0.1:<port>,2,<rank>``
+   (``chip_smoke.py --worker``). (1) Phase 4's 192 Mbp data through
+   `graph.build_deferred`, plain (cold, then warm) and with ``low_memory``:
+   both processes' arrays byte-equal to the single-device build (a SHA-256
+   of the arrays), B2 and B3 once per batch in which a process holds
+   bases. (2) The reduced CLI (phase 5) in both processes, each with its
+   own --prefix, plain and with ``--sketch-mode device``: its files
+   byte-equal to the single-process runs. Seconds and launches per
+   process; ``--profile`` traces one more build in each (device busy, host
+   spans).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -75,10 +98,12 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import logging
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -94,6 +119,8 @@ MAIN_GENOMES, MAIN_LEN = 64, 3_000_000
 PROXY = (72, 99, 4_700_000)    # golden171 proxy: targets, non-targets, genome length
 LONG_LEN = 100_000_000         # phase 6's long record
 EDGE_W = 4500                  # a window longer than the kernel's tile
+SEED_PATTERN = '110110110111011011011'  # a spaced seed as long as k (15 care positions)
+SKETCHES_HELD = (0, 72, 170)   # proxy assemblies whose card sketches are held to the CPU's
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 INT32_PER_SM_CLOCK = 64        # Hopper's 32-bit integer instruction rate per SM
 SMS = 132                      # H100 SXM
@@ -482,7 +509,7 @@ def check_no_sync(paths, devices):
         raise AssertionError("sync debug mode 'error' let torch.bincount through")
     pre = strict(dist._prepass, shards, K, W, n_dev, extras)
     counts, e_hist, p_hist = dist._read_prepass(pre, n_dev)
-    _, _, checks = strict(dist._step, shards, K, W, counts, e_hist, p_hist, devices, extras)
+    _, _, _, checks = strict(dist._step, shards, K, W, counts, e_hist, p_hist, devices, extras)
     dist._check_step(checks)
     n_x = sum(x is not None for x in extras)
     log(f'[no-sync] pre-pass and build step of {sum(s is not None for s in shards)} shard '
@@ -612,24 +639,34 @@ def profile_run(build_fn, paths, targets, config, spans):
         main_path(build_fn, paths, targets, config)
     avg = prof.key_averages()
     log(avg.table(sort_by='cuda_time_total', row_limit=15))
-    # device events less the annotations that mirror host spans, as the
-    # table's "Self CUDA time total" sums them: kernels, copies and the
-    # profiler's own "Activity Buffer Request" row
-    dev_events = [e for e in avg if e.device_type != DeviceType.CPU
-                  and not getattr(e, 'is_user_annotation', False)]
-    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    busy = device_busy_ms(avg)
     kernels = {'phase1_kernel' + e.key.split('phase1_kernel')[1][:3]:
                (e.count, e.self_device_time_total / 1e3)
-               for e in dev_events if 'phase1_kernel' in e.key}
+               for e in avg if e.device_type != DeviceType.CPU and 'phase1_kernel' in e.key}
     log(f'[profile] device busy {busy:.3f} ms; phase-1 kernels '
         f'(launches, ms) {kernels}')
-    # a span with device work inside also has a device-side entry of the
-    # same name and no CPU time: keep the CPU one
-    found = {name: max((dict(calls=e.count, cpu_ms=e.cpu_time_total / 1e3)
-                        for e in avg if e.key == name),
-                       key=lambda d: d['cpu_ms'], default=None)
-             for name in spans}
-    log('[profile] host spans ' + json.dumps(found))
+    log('[profile] host spans ' + json.dumps(host_spans(avg, spans)))
+
+
+def device_busy_ms(avg) -> float:
+    """Device time of a profile's `key_averages()`: kernels, copies and
+    the profiler's own "Activity Buffer Request" row, less the annotations
+    that mirror host spans (as the table's "Self CUDA time total" sums
+    them)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in avg if e.device_type != DeviceType.CPU
+               and not getattr(e, 'is_user_annotation', False)) / 1e3
+
+
+def host_spans(avg, spans) -> dict:
+    """Calls and CPU ms of the package's spans in a profile's
+    `key_averages()`. A span with device work inside also has a device-side
+    entry of the same name and no CPU time: keep the CPU one."""
+    return {name: max((dict(calls=e.count, cpu_ms=e.cpu_time_total / 1e3)
+                       for e in avg if e.key == name),
+                      key=lambda d: d['cpu_ms'], default=None)
+            for name in spans}
 
 
 def write_lists(td: Path, paths, targets) -> dict:
@@ -802,67 +839,66 @@ def _differing(a: Path, b: Path, names) -> list:
     return [n for n in names if (a / n).read_bytes() != (b / n).read_bytes()]
 
 
-def phase_pipeline_reduced(seed: int):
-    """24 genomes x 1 Mbp (10 targets, 14 non-targets): `python -m
-    seqwin_tpu_torch` on the card in a subprocess, against the port's CPU
-    run in this process; signatures.fasta/.csv and assemblies.csv byte-equal,
-    and the arrays of a --no-filter run's graph.npz."""
+def phase_pipeline_reduced(seed: int, td: Path) -> dict:
+    """24 genomes x 1 Mbp (10 targets, 14 non-targets) in ``td``: `python -m
+    seqwin_tpu_torch` on the card in a subprocess (run ``gpu``), against the
+    port's CPU run in this process; signatures.fasta/.csv and
+    assemblies.csv byte-equal, and the arrays of a --no-filter run's
+    graph.npz. Returns the path lists and the record lengths."""
     from seqwin_tpu_torch import Config, run
 
-    with tempfile.TemporaryDirectory() as td:
-        td = Path(td)
-        lists, _ = proxy_data(td, 10, 14, 1_000_000, seed + 5)
-        common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
-                  '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8']
-        secs = {}
-        for title, extra in (('gpu', []), ('gpu_raw', ['--no-filter'])):
-            t0 = time.perf_counter()
-            res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common,
-                                  '--title', title, *extra],
-                                 cwd=REPO, capture_output=True, text=True, timeout=600)
-            secs[title] = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise AssertionError(f'python -m seqwin_tpu_torch ({title}) exited '
-                                     f'{res.returncode}:\n{res.stderr[-3000:]}')
-        # the host backend with no card visible: it needs none
+    lists, rec_lens = proxy_data(td, 10, 14, 1_000_000, seed + 5)
+    common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+              '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8']
+    secs = {}
+    for title, extra in (('gpu', []), ('gpu_raw', ['--no-filter'])):
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common, '--title',
-                              'numpy', '--backend', 'numpy'], cwd=REPO, capture_output=True,
-                             text=True, timeout=600, env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
-        secs['numpy'] = time.perf_counter() - t0
+        res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common,
+                              '--title', title, *extra],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        secs[title] = time.perf_counter() - t0
         if res.returncode != 0:
-            raise AssertionError(f'python -m seqwin_tpu_torch --backend numpy exited '
+            raise AssertionError(f'python -m seqwin_tpu_torch ({title}) exited '
                                  f'{res.returncode}:\n{res.stderr[-3000:]}')
-        for title, kw in (('cpu', {}), ('cpu_raw', dict(no_filter=True))):
-            t0 = time.perf_counter()
-            run(Config(**lists, prefix=td, title=title, run_mash=False, run_blast=False,
-                       n_cpu=8, device='cpu', **kw))
-            secs[title] = time.perf_counter() - t0
-        differ = _differing(td / 'gpu', td / 'cpu',
-                               ('signatures.fasta', 'signatures.csv', 'assemblies.csv'))
-        if differ:
-            raise AssertionError(f'reduced pipeline: GPU CLI and CPU run differ in {differ}')
-        differ = _differing(td / 'gpu', td / 'numpy', FILES)
-        if differ:
-            raise AssertionError(f'reduced pipeline: --backend numpy and the GPU CLI differ in {differ}')
-        n_sig = (td / 'gpu' / 'signatures.fasta').read_bytes().count(b'>')
-        gpu, cpu = np.load(td / 'gpu_raw' / 'graph.npz'), np.load(td / 'cpu_raw' / 'graph.npz')
-        for key in ('kmers', 'nodes', 'edges', 'record_offsets'):
-            if gpu[key].dtype != cpu[key].dtype or gpu[key].tobytes() != cpu[key].tobytes():
-                raise AssertionError(f'reduced pipeline: --no-filter graph.npz {key} differs')
-        if not n_sig:
-            raise AssertionError('reduced pipeline: no signature')
-        log(f'[pipeline] 24 x 1 Mbp: `python -m seqwin_tpu_torch --no-mash --no-blast -p 8` '
-            f'on the card byte-equal to the CPU run: {n_sig} signatures, signatures.fasta, '
-            f'signatures.csv, assemblies.csv; --no-filter graph.npz arrays equal '
-            f'({len(gpu["kmers"])} minimizers); seconds '
-            + ', '.join(f'{k} {v:.2f}' for k, v in secs.items()))
-        log(f'[phase6 host-backend] 24 x 1 Mbp: `python -m seqwin_tpu_torch --backend numpy` '
-            f'with CUDA_VISIBLE_DEVICES="" byte-equal to the GPU CLI run (signatures.fasta, '
-            f"signatures.csv, assemblies.csv) in {secs['numpy']:.2f} s")
+    # the host backend with no card visible: it needs none
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, '-m', 'seqwin_tpu_torch', *common, '--title',
+                          'numpy', '--backend', 'numpy'], cwd=REPO, capture_output=True,
+                         text=True, timeout=600, env={**os.environ, 'CUDA_VISIBLE_DEVICES': ''})
+    secs['numpy'] = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f'python -m seqwin_tpu_torch --backend numpy exited '
+                             f'{res.returncode}:\n{res.stderr[-3000:]}')
+    for title, kw in (('cpu', {}), ('cpu_raw', dict(no_filter=True))):
+        t0 = time.perf_counter()
+        run(Config(**lists, prefix=td, title=title, run_mash=False, run_blast=False,
+                   n_cpu=8, device='cpu', **kw))
+        secs[title] = time.perf_counter() - t0
+    differ = _differing(td / 'gpu', td / 'cpu', FILES)
+    if differ:
+        raise AssertionError(f'reduced pipeline: GPU CLI and CPU run differ in {differ}')
+    differ = _differing(td / 'gpu', td / 'numpy', FILES)
+    if differ:
+        raise AssertionError(f'reduced pipeline: --backend numpy and the GPU CLI differ in {differ}')
+    n_sig = (td / 'gpu' / 'signatures.fasta').read_bytes().count(b'>')
+    gpu, cpu = np.load(td / 'gpu_raw' / 'graph.npz'), np.load(td / 'cpu_raw' / 'graph.npz')
+    for key in ('kmers', 'nodes', 'edges', 'record_offsets'):
+        if gpu[key].dtype != cpu[key].dtype or gpu[key].tobytes() != cpu[key].tobytes():
+            raise AssertionError(f'reduced pipeline: --no-filter graph.npz {key} differs')
+    if not n_sig:
+        raise AssertionError('reduced pipeline: no signature')
+    log(f'[pipeline] 24 x 1 Mbp: `python -m seqwin_tpu_torch --no-mash --no-blast -p 8` '
+        f'on the card byte-equal to the CPU run: {n_sig} signatures, signatures.fasta, '
+        f'signatures.csv, assemblies.csv; --no-filter graph.npz arrays equal '
+        f'({len(gpu["kmers"])} minimizers); seconds '
+        + ', '.join(f'{k} {v:.2f}' for k, v in secs.items()))
+    log(f'[phase6 host-backend] 24 x 1 Mbp: `python -m seqwin_tpu_torch --backend numpy` '
+        f'with CUDA_VISIBLE_DEVICES="" byte-equal to the GPU CLI run (signatures.fasta, '
+        f"signatures.csv, assemblies.csv) in {secs['numpy']:.2f} s")
+    return lists, rec_lens
 
 
-def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
+def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
     """The golden171 proxy at its own scale, 72 + 99 genomes x 4.7 Mbp
     (~804 Mbp): `cli.main` in this process twice, -p 8, each driven with
     the launch counts at 0 and read just after; at least one signature, B1
@@ -875,48 +911,45 @@ def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
     from seqwin_tpu_torch import cli, core
 
     n_tar, n_neg, genome_len = PROXY
-    with tempfile.TemporaryDirectory() as td:
-        td = Path(td)
+    t0 = time.perf_counter()
+    lists, rec_lens = proxy_data(td, n_tar, n_neg, genome_len, seed + 171)
+    log(f'[pipeline] datagen {time.perf_counter() - t0:.1f} s '
+        f'({n_tar} + {n_neg} x {genome_len} bp, {len(rec_lens)} records)')
+    chunks = expected_chunks(rec_lens)
+    runs = []
+    for title in ('e2e_first', 'e2e'):
+        argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+                '--prefix', str(td), '--title', title, '--no-mash', '--no-blast', '-p', '8']
+        prof_dir = td / 'profile' if profile and title == 'e2e' else None
+        reset_launches()
         t0 = time.perf_counter()
-        lists, rec_lens = proxy_data(td, n_tar, n_neg, genome_len, seed + 171)
-        log(f'[pipeline] datagen {time.perf_counter() - t0:.1f} s '
-            f'({n_tar} + {n_neg} x {genome_len} bp, {len(rec_lens)} records)')
-        chunks = expected_chunks(rec_lens)
-        runs = []
-        for title in ('e2e_first', 'e2e'):
-            argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
-                    '--prefix', str(td), '--title', title, '--no-mash', '--no-blast', '-p', '8']
-            prof_dir = td / 'profile' if profile and title == 'e2e' else None
-            reset_launches()
-            t0 = time.perf_counter()
-            if prof_dir is None:
-                rc = cli.main(argv)
-            else:
-                args = cli.build_parser().parse_args(argv)
-                core.run(dataclasses.replace(cli.config_from_args(args), profile_dir=prof_dir))
-                rc = 0
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_launches()
-            if rc != 0:
-                raise AssertionError(f'cli.main exited {rc} ({title})')
-            want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
-            if launches != want:
-                raise AssertionError(f'pipeline launches {launches}, expected {want}')
-            out_dir = td / title
-            log_text = (out_dir / 'seqwin.log').read_text()
-            busy = re.search(r'Device busy ([\d.]+) ms', log_text) if prof_dir else None
-            if prof_dir is not None and not ((prof_dir / 'trace.json').is_file() and busy):
-                raise AssertionError('profiled pipeline run: no trace or no device-busy line')
-            runs.append(dict(title=title, wall_s=wall, phases_s=log_phases(out_dir / 'seqwin.log'),
-                             launches=launches, device_busy_ms=float(busy.group(1)) if busy else None,
-                             n_signatures=(out_dir / 'signatures.fasta').read_bytes().count(b'>')))
-        differ = _differing(td / 'e2e_first', td / 'e2e',
-                               ('signatures.fasta', 'signatures.csv', 'assemblies.csv'))
-        if differ:
-            raise AssertionError(f'full-scale pipeline: the two runs differ in {differ}')
-        if not runs[0]['n_signatures']:
-            raise AssertionError('full-scale pipeline: no signature')
+        if prof_dir is None:
+            rc = cli.main(argv)
+        else:
+            args = cli.build_parser().parse_args(argv)
+            core.run(dataclasses.replace(cli.config_from_args(args), profile_dir=prof_dir))
+            rc = 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f'cli.main exited {rc} ({title})')
+        want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+        if launches != want:
+            raise AssertionError(f'pipeline launches {launches}, expected {want}')
+        out_dir = td / title
+        log_text = (out_dir / 'seqwin.log').read_text()
+        busy = re.search(r'Device busy ([\d.]+) ms', log_text) if prof_dir else None
+        if prof_dir is not None and not ((prof_dir / 'trace.json').is_file() and busy):
+            raise AssertionError('profiled pipeline run: no trace or no device-busy line')
+        runs.append(dict(title=title, wall_s=wall, phases_s=log_phases(out_dir / 'seqwin.log'),
+                         launches=launches, device_busy_ms=float(busy.group(1)) if busy else None,
+                         n_signatures=(out_dir / 'signatures.fasta').read_bytes().count(b'>')))
+    differ = _differing(td / 'e2e_first', td / 'e2e', FILES)
+    if differ:
+        raise AssertionError(f'full-scale pipeline: the two runs differ in {differ}')
+    if not runs[0]['n_signatures']:
+        raise AssertionError('full-scale pipeline: no signature')
     for r in runs:
         log(f"[pipeline] {n_tar} + {n_neg} x {genome_len} bp, cli.main -p 8 ({r['title']}): "
             f"{r['wall_s']:.2f} s wall; phases (s) {json.dumps(r['phases_s'])}; "
@@ -924,7 +957,7 @@ def phase_pipeline_full(seed: int, profile: bool, card: str) -> dict:
             + (f"; device busy {r['device_busy_ms']:.3f} ms (torch.profiler)"
                if r['device_busy_ms'] is not None else '') + f'; on {card}')
     log('[pipeline] both runs byte-equal: signatures.fasta, signatures.csv, assemblies.csv')
-    return dict(chunks=chunks, launches=runs[0]['launches'], runs=runs)
+    return dict(chunks=chunks, launches=runs[0]['launches'], runs=runs, lists=lists)
 
 
 def phase_low_memory_cli(seed: int, profile: bool, card: str) -> dict:
@@ -1066,15 +1099,14 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
     return runs
 
 
-def phase_multi_low_memory(paths, targets, devices) -> dict:
+def phase_multi_low_memory(paths, targets, devices, single) -> dict:
     """Phase 6 (3): the 192 Mbp data through `build_distributed` over
     ``devices`` with ``low_memory`` (whole-assembly batches of at least
     len(devices) x 2^22 bases, merged on the host), byte-equal to the
-    single-device build; B2 and B3 once per shard stream with bases in
-    each batch, B1 never."""
+    single-device build ``single``; B2 and B3 once per shard stream with
+    bases in each batch, B1 never."""
     import torch
 
-    from seqwin_tpu_torch.graph import build
     from seqwin_tpu_torch.graph.build import LOW_MEMORY_CHUNK_BASES
     from seqwin_tpu_torch.parallel import build_distributed
     from seqwin_tpu_torch.parallel.distributed import partition_records
@@ -1090,7 +1122,6 @@ def phase_multi_low_memory(paths, targets, devices) -> dict:
             shards += sum(any(b for b, d in zip(batch, of) if d == j) for j in range(n_dev))
             batch = []
     del records
-    single = build(paths, K, W, targets, n_cpu=8)
     reset_launches()
     t0 = time.perf_counter()
     graph, offsets, ids = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True,
@@ -1109,11 +1140,338 @@ def phase_multi_low_memory(paths, targets, devices) -> dict:
     return dict(secs=secs, launches=launches)
 
 
+_THRESHOLD = re.compile(r'calculated penalty threshold: ([\d.]+)')
+
+
+def penalty_threshold_of(log_file: Path) -> float:
+    """The penalty threshold a run computed, from its `seqwin.log`."""
+    return float(_THRESHOLD.search(log_file.read_text()).group(1))
+
+
+def list_targets(lists: dict) -> list[bool]:
+    """The target flags of `list_paths(lists)`."""
+    return [key == 'tar_paths' for key in ('tar_paths', 'neg_paths')
+            for _ in lists[key].read_text().split()]
+
+
+def parse_assemblies(paths) -> list[list[np.ndarray]]:
+    """Per assembly, its parsed record codes."""
+    from seqwin_tpu_torch.io.fasta import iter_assemblies
+
+    return [codes for _, codes in iter_assemblies([str(p) for p in paths], 8)]
+
+
+def phase_sketch_reduced(lists: dict, rec_lens, td: Path, devices, card: str) -> dict:
+    """Phase 7 (1) and (3) on phase 5's reduced proxy in ``td``: `cli.main
+    --sketch-mode device` on the card, plain and with ``--seed-pattern``,
+    each against the port's CPU run with the same options (the three files
+    byte-equal; B1 once per chunk); then `build_distributed(...,
+    keep_codes=True)` over ``devices``, its kept codes equal to the
+    parse."""
+    import torch
+
+    from seqwin_tpu_torch import Config, cli, run
+    from seqwin_tpu_torch.parallel import build_distributed
+
+    common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+              '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8', '--sketch-mode', 'device']
+    chunks = expected_chunks(rec_lens)
+    out = {}
+    for label, pattern in (('sketch', None), ('sketch_seed', SEED_PATTERN)):
+        extra = ['--seed-pattern', pattern] if pattern else []
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([*common, '--title', f'gpu_{label}', *extra])
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f'cli.main --sketch-mode device ({label}) exited {rc}')
+        want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+        if launches != want:
+            raise AssertionError(f'{label} reduced CLI launches {launches}, expected {want}')
+        t0 = time.perf_counter()
+        run(Config(**lists, prefix=td, title=f'cpu_{label}', run_mash=False, run_blast=False,
+                   n_cpu=8, device='cpu', sketch_mode='device', seed_pattern=pattern))
+        cpu_s = time.perf_counter() - t0
+        differ = _differing(td / f'gpu_{label}', td / f'cpu_{label}', FILES)
+        if differ:
+            raise AssertionError(f'--sketch-mode device ({label}): card and CPU runs differ in {differ}')
+        n_sig = (td / f'gpu_{label}' / 'signatures.fasta').read_bytes().count(b'>')
+        if not n_sig:
+            raise AssertionError(f'--sketch-mode device ({label}): no signature')
+        out[label] = dict(gpu_s=gpu_s, cpu_s=cpu_s, launches=launches, n_signatures=n_sig,
+                          penalty_th=penalty_threshold_of(td / f'gpu_{label}' / 'seqwin.log'))
+        log(f"[phase7 sketch] 24 x 1 Mbp: cli.main {' '.join(['--sketch-mode', 'device', *extra])} on the "
+            f"card byte-equal to the CPU run ({', '.join(FILES)}): {n_sig} signatures, threshold "
+            f"{out[label]['penalty_th']} (minimizer estimate "
+            f"{penalty_threshold_of(td / 'gpu' / 'seqwin.log')}); card {gpu_s:.2f} s, CPU "
+            f'{cpu_s:.2f} s; launches {launches}; on {card}')
+
+    paths, targets = list_paths(lists), list_targets(lists)
+    reset_launches()
+    t0 = time.perf_counter()
+    graph, _, _ = build_distributed(paths, K, W, targets, devices, n_cpu=8, defer=True,
+                                    keep_codes=True)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = parse_assemblies(paths)
+    if len(graph.record_codes) != len(want) or not all(
+            len(g) == len(w) and all(a.dtype == b.dtype and np.array_equal(a, b)
+                                     for a, b in zip(g, w))
+            for g, w in zip(graph.record_codes, want)):
+        raise AssertionError('build_distributed(keep_codes=True): kept codes differ from the parse')
+    if launches != {'phase1_z': 0, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}:
+        raise AssertionError(f'build_distributed(keep_codes=True) launches {launches}')
+    out['keep_codes'] = dict(secs=secs, launches=launches)
+    log(f'[phase7 keep-codes] 24 x 1 Mbp build_distributed(keep_codes=True) over '
+        f'{[str(d) for d in devices]}: the codes of {len(want)} assemblies equal the parse; '
+        f'{secs:.2f} s, launches {launches}')
+    return out
+
+
+def phase_sketch_full(td: Path, pipe: dict, card: str, profile: bool) -> dict:
+    """Phase 7 (2) on phase 5's 804 Mbp proxy in ``td``: `cli.main
+    --sketch-mode device`, B1 once per chunk, wall time, `Finished in`
+    seconds and the threshold against the minimizer estimate of phase 5's
+    ``e2e`` run; then the card's sketches of every assembly and their
+    Jaccard matrix timed alone (the parse before them not timed), the
+    sketches of `SKETCHES_HELD` and the whole matrix equal to the CPU's.
+    ``profile`` traces the sketches once more (device busy)."""
+    import torch
+
+    from seqwin_tpu_torch import cli
+    from seqwin_tpu_torch.mash import device_sketches, sketch_jaccard_matrix
+
+    lists, chunks = pipe['lists'], pipe['chunks']
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
+                   '--prefix', str(td), '--title', 'e2e_sketch', '--no-mash', '--no-blast', '-p',
+                   '8', '--sketch-mode', 'device'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f'cli.main --sketch-mode device exited {rc} (804 Mbp)')
+    want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+    if launches != want:
+        raise AssertionError(f'804 Mbp --sketch-mode device launches {launches}, expected {want}')
+    log_file = td / 'e2e_sketch' / 'seqwin.log'
+    n_sig = (td / 'e2e_sketch' / 'signatures.fasta').read_bytes().count(b'>')
+    res = dict(wall_s=wall, phases_s=log_phases(log_file), launches=launches, n_signatures=n_sig,
+               penalty_th=penalty_threshold_of(log_file),
+               minimizer_penalty_th=penalty_threshold_of(td / 'e2e' / 'seqwin.log'),
+               minimizer_phases_s=pipe['runs'][-1]['phases_s'])
+    log(f"[phase7 sketch] {PROXY[0]} + {PROXY[1]} x {PROXY[2]} bp, cli.main -p 8 --sketch-mode "
+        f"device: {wall:.2f} s wall; phases (s) {json.dumps(res['phases_s'])}; threshold "
+        f"{res['penalty_th']} (minimizer estimate {res['minimizer_penalty_th']}, phases (s) "
+        f"{json.dumps(res['minimizer_phases_s'])}); {n_sig} signatures; launches {launches}; "
+        f'on {card}')
+
+    records = parse_assemblies(list_paths(lists))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sketches = device_sketches(records, K, 1000, device='cuda')
+    res['sketches_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mtx = sketch_jaccard_matrix(sketches, 1000, device='cuda')
+    res['matrix_s'] = time.perf_counter() - t0
+    if any(len(s) != 1000 for s in sketches):
+        raise AssertionError('804 Mbp sketches: an assembly with fewer than 1000 distinct hashes')
+    for i in SKETCHES_HELD:
+        cpu = device_sketches(records[i:i + 1], K, 1000, device='cpu')[0]
+        if cpu.dtype != sketches[i].dtype or not np.array_equal(cpu, sketches[i]):
+            raise AssertionError(f'804 Mbp sketches: assembly {i} differs between card and CPU')
+    if not np.array_equal(sketch_jaccard_matrix(sketches, 1000, device='cpu'), mtx):
+        raise AssertionError('804 Mbp Jaccard matrix differs between card and CPU')
+    n = len(records)
+    log(f"[phase7 sketch] {n} assemblies, {sum(len(c) for r in records for c in r)} bases: "
+        f"sketches on the card {res['sketches_s']:.3f} s ({res['sketches_s'] / n * 1e3:.2f} ms "
+        f"per assembly), Jaccard matrix {n} x {n} {res['matrix_s']:.3f} s (float64); sketches "
+        f'of assemblies {list(SKETCHES_HELD)} and the whole matrix equal to the CPU; on {card}')
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprof
+
+        with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            device_sketches(records, K, 1000, device='cuda')
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        log(avg.table(sort_by='cuda_time_total', row_limit=12))
+        res['sketches_device_busy_ms'] = device_busy_ms(avg)
+        log(f"[phase7 profile] sketches of {n} assemblies traced: device busy "
+            f"{res['sketches_device_busy_ms']:.3f} ms")
+    return res
+
+
+def build_digest(res) -> str:
+    """SHA-256 of a build's (kmers, nodes, edges, record_offsets, record_ids)."""
+    h = hashlib.sha256()
+    for a in res[:4]:
+        h.update(str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(json.dumps([list(t) for t in res[4]]).encode())
+    return h.hexdigest()
+
+
+def worker(task_file: str, rank: int) -> int:
+    """One process of phase 8: rank ``rank`` of the gloo group at the
+    task's port. `graph.build_deferred` of the 192 Mbp data plain, with
+    ``low_memory`` and plain again (warm), then the reduced CLI plain and
+    with ``--sketch-mode device``, each with the launch counts at 0 and read
+    just after; with the task's ``profile`` one more plain build traced
+    (device busy, the package's host spans). Writes the seconds, launches
+    and build digests to ``result.json`` under the rank's prefix."""
+    task = json.loads(Path(task_file).read_text())
+    os.environ['SEQWIN_TPU_MULTIHOST'] = f"127.0.0.1:{task['port']},2,{rank}"
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as tdist
+
+    from seqwin_tpu_torch import cli
+    from seqwin_tpu_torch.graph import build_deferred
+
+    def multihost_build(low_memory: bool) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        graph, offsets, ids = build_deferred(task['paths'], K, W, task['targets'], n_cpu=8,
+                                             low_memory=low_memory)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        kmers, edges = graph.materialize()
+        return dict(secs=secs, launches=launches, n_chunks=graph.n_chunks,
+                    digest=build_digest((kmers, graph.nodes, edges, offsets, ids)))
+
+    # the first build pays this process's first use of the card
+    out = {label: multihost_build(low_memory)
+           for label, low_memory in (('plain', False), ('low_memory', True), ('plain_warm', False))}
+    if task['profile']:
+        from torch.profiler import ProfilerActivity, profile as tprof
+
+        with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            multihost_build(False)
+        avg = prof.key_averages()
+        out['profile'] = dict(device_busy_ms=device_busy_ms(avg), spans=host_spans(avg, (
+            'multihost.parse', 'hybrid.host_prep', 'distributed.prepass', 'distributed.step',
+            'distributed.exchange', 'distributed.merge', 'distributed.gather')))
+    prefix = Path(task['prefix']) / f'rank{rank}'
+    prefix.mkdir(parents=True)
+    for title, extra in (('gpu', []), ('gpu_sketch', ['--sketch-mode', 'device'])):
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(['--tar-paths', task['tar_paths'], '--neg-paths', task['neg_paths'],
+                       '--prefix', str(prefix), '--title', title, '--no-mash', '--no-blast',
+                       '-p', '8', *extra])
+        torch.cuda.synchronize()
+        out[title] = dict(rc=rc, secs=time.perf_counter() - t0, launches=read_launches())
+    (prefix / 'result.json').write_text(json.dumps(out))
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_multi_host(paths, targets, single, single_s: float, lists: dict, reduced: Path,
+                     td: Path, card: str, profile: bool) -> dict:
+    """Phase 8: two OS processes on the card (`worker`), ranks of one gloo
+    group through ``SEQWIN_TPU_MULTIHOST=127.0.0.1:<port>,2,<rank>``. Both
+    processes' 192 Mbp builds, plain and low memory, byte-equal to the
+    single-device build ``single`` (SHA-256 digests); B2 and B3 once per
+    batch in which the process holds bases, B1 never; the reduced CLI runs
+    of both byte-equal to the single-process runs in ``reduced`` (phase 5's
+    ``gpu``, phase 7's ``gpu_sketch``). ``profile`` traces one more build
+    in each process."""
+    import torch
+
+    from seqwin_tpu_torch.graph.build import LOW_MEMORY_CHUNK_BASES
+    from seqwin_tpu_torch.parallel.multihost import _size_batches, partition_indices
+
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    task = dict(port=port, paths=[str(p) for p in paths], targets=list(targets),
+                tar_paths=str(lists['tar_paths']), neg_paths=str(lists['neg_paths']),
+                prefix=str(td / 'multihost'), profile=profile)
+    task_file = td / 'multihost_task.json'
+    task_file.write_text(json.dumps(task))
+    env = {**os.environ}
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')  # both ranks on this host
+    logs = [td / f'multihost_rank{r}.log' for r in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(2):
+            with open(logs[r], 'w') as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), '--worker', str(task_file),
+                     str(r)], cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f'multi-host worker {r} exited {p.returncode}:\n'
+                                 f'{logs[r].read_text()[-4000:]}')
+
+    want_digest = build_digest(single)
+    sizes = [Path(p).stat().st_size for p in paths]
+    one_card = torch.cuda.device_count() == 1
+    batches = _size_batches(task['paths'], sizes, 2 * LOW_MEMORY_CHUNK_BASES)
+    out = {'wall_s': wall, 'single_s': single_s}
+    for r in range(2):
+        res = json.loads((td / 'multihost' / f'rank{r}' / 'result.json').read_text())
+        for label in ('plain', 'low_memory', 'plain_warm'):
+            b = res[label]
+            if b['digest'] != want_digest:
+                raise AssertionError(f'multi-host {label} build of rank {r} differs from the '
+                                     'single-device build')
+            owned = (sum(bool(partition_indices(sizes[lo:hi], 2, r)) for lo, hi in batches)
+                     if label == 'low_memory' else 1)
+            want = {'phase1_z': 0, 'phase1_zc': b['n_chunks'], 'phase1_pfx': b['n_chunks']}
+            if b['launches'] != want or not b['n_chunks'] or (one_card and b['n_chunks'] != owned):
+                raise AssertionError(f'multi-host {label} rank {r} launches {b["launches"]} '
+                                     f'({b["n_chunks"]} shard streams), expected {want}, '
+                                     f'{owned} with one card per process')
+        for title in ('gpu', 'gpu_sketch'):
+            c = res[title]
+            if c['rc'] != 0:
+                raise AssertionError(f'multi-host CLI ({title}) of rank {r} exited {c["rc"]}')
+            differ = _differing(reduced / title, td / 'multihost' / f'rank{r}' / title, FILES)
+            if differ:
+                raise AssertionError(f'multi-host CLI ({title}) of rank {r} differs from the '
+                                     f'single-process run in {differ}')
+            if c['launches']['phase1_z'] or not c['launches']['phase1_zc']:
+                raise AssertionError(f'multi-host CLI ({title}) rank {r} launches {c["launches"]}')
+        out[f'rank{r}'] = res
+        log(f"[phase8 multi-host] rank {r} of 2 on {torch.cuda.get_device_name(0)}: 192 Mbp "
+            f"graph.build byte-equal to the single-device build, plain {res['plain']['secs']:.2f} s "
+            f"(warm {res['plain_warm']['secs']:.2f} s) launches {res['plain']['launches']}, "
+            f"low_memory {res['low_memory']['secs']:.2f} s launches "
+            f"{res['low_memory']['launches']}; reduced CLI byte-equal to the "
+            f"single-process runs ({', '.join(FILES)}), plain {res['gpu']['secs']:.2f} s "
+            f"launches {res['gpu']['launches']}, --sketch-mode device "
+            f"{res['gpu_sketch']['secs']:.2f} s; on {card}")
+        if profile:
+            log(f'[phase8 profile] rank {r}: traced warm build, device busy '
+                f"{res['profile']['device_busy_ms']:.3f} ms; host spans "
+                + json.dumps(res['profile']['spans']))
+    log(f'[phase8 multi-host] two processes {wall:.2f} s wall (start-up included); the '
+        f'single-device 192 Mbp graph.build {single_s:.2f} s')
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--profile', action='store_true',
                     help='trace one more run of each main path with torch.profiler')
+    ap.add_argument('--worker', nargs=2, metavar=('TASK', 'RANK'),
+                    help='run as one process of phase 8 (started by this script)')
     args = ap.parse_args()
 
     import torch
@@ -1127,10 +1485,14 @@ def main() -> int:
     except ImportError as e:
         print(f'chip_smoke: seqwin_tpu_torch not importable from {REPO}: {e}', file=sys.stderr)
         return 1
+    if args.worker:
+        return worker(args.worker[0], int(args.worker[1]))
     # the package's INFO lines go to each run's seqwin.log, not to stdout
     for handler in logging.getLogger().handlers:
         if isinstance(handler, logging.StreamHandler) and not isinstance(handler, logging.FileHandler):
             handler.setLevel(logging.WARNING)
+
+    from seqwin_tpu_torch.graph import build
 
     name = torch.cuda.get_device_name(0)
     card = smi()
@@ -1140,13 +1502,25 @@ def main() -> int:
         f"({'one card repeated' if len(set(devices)) == 1 else 'distinct cards'})")
     phase_build()
     with tempfile.TemporaryDirectory() as td:
-        paths, targets = main_data(Path(td), args.seed)
+        td = Path(td)
+        paths, targets = main_data(td, args.seed)
         kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
         phase_small(args.seed, devices)
-        main_res = phase_main(paths, targets, args.profile, card, devices, Path(td))
-        multi_low = phase_multi_low_memory(paths, targets, devices)
-    phase_pipeline_reduced(args.seed)
-    pipe = phase_pipeline_full(args.seed, args.profile, card)
+        main_res = phase_main(paths, targets, args.profile, card, devices, td)
+        t0 = time.perf_counter()
+        single = build(paths, K, W, targets, n_cpu=8)
+        single_s = time.perf_counter() - t0
+        multi_low = phase_multi_low_memory(paths, targets, devices, single)
+        reduced = td / 'reduced'
+        reduced.mkdir()
+        lists, rec_lens = phase_pipeline_reduced(args.seed, reduced)
+        sketch_reduced = phase_sketch_reduced(lists, rec_lens, reduced, devices, card)
+        multi_host = phase_multi_host(paths, targets, single, single_s, lists, reduced, td, card,
+                                      args.profile)
+        del single
+    with tempfile.TemporaryDirectory() as td:
+        pipe = phase_pipeline_full(args.seed, args.profile, card, Path(td))
+        sketch_full = phase_sketch_full(Path(td), pipe, card, args.profile)
     low = phase_low_memory_cli(args.seed, args.profile, card)
     long_rec = phase_long_record(args.seed, devices, card)
     for kern in kernels:
@@ -1159,6 +1533,15 @@ def main() -> int:
             'complete_genomes_low_memory': low['low_memory']['launches'][kname],
             **{f'long_record_{k}': v['launches'][kname] for k, v in long_rec.items()},
             'multi_device_low_memory': multi_low['launches'][kname]}
+        kern['phase7_launches'] = {
+            'cli_sketch_device_804mbp': sketch_full['launches'][kname],
+            **{f'cli_{k}_24mbp': v['launches'][kname] for k, v in sketch_reduced.items()
+               if k != 'keep_codes'},
+            'keep_codes_multi_device': sketch_reduced['keep_codes']['launches'][kname]}
+        kern['phase8_launches'] = {
+            f'rank{r}_{label}': multi_host[f'rank{r}'][run]['launches'][kname]
+            for r in range(2) for label, run in (('build', 'plain'), ('build_low_memory', 'low_memory'),
+                                                 ('cli', 'gpu'), ('cli_sketch_device', 'gpu_sketch'))}
     log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {

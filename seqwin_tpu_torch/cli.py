@@ -4,10 +4,10 @@ Counterpart: `seqwin_tpu/cli.py`, with the same option surface (flags,
 dests, defaults, choices), implemented with argparse. Flag inversions
 preserved: --no-mash -> run_mash=False, --no-blast -> run_blast=False,
 --no-gzip -> gzip=False. The run goes to the GPU, ``--low-memory`` with
-smaller chunks (2^22 bases; longer records in halo'd blocks). Without a
-GPU, and for the option the port does not have yet (``--sketch-mode
-device``), it stops with a message and exit code 1. ``--backend
-numpy|oracle`` builds the graph on the host and runs without a GPU.
+smaller chunks (2^22 bases; longer records in halo'd blocks), ``--sketch-mode
+device`` with MinHash sketches on the card. Without a GPU it stops with a
+message and exit code 1. ``--backend numpy|oracle`` builds the graph (and
+computes any sketches) on the host and runs without a GPU.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     g_misc.add_argument('--sketch-mode', default='auto',
                         choices=('auto', 'device', 'minimizer'),
                         help='Jaccard estimator for the penalty threshold '
-                             '(device = on-device bottom-k MinHash, not in this port yet).')
+                             '(device = on-device bottom-k MinHash).')
     g_misc.add_argument('--seed-pattern', default=None,
                         help="Spaced-seed pattern ('1'/'0' string) for the "
                              'on-device sketches; default contiguous k-mers.')
@@ -156,7 +156,7 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         run(config_from_args(args))
-    except (DeviceUnavailable, NotImplementedError) as e:
+    except DeviceUnavailable as e:
         print(f'{PROG}: {e}', file=sys.stderr)
         return 1
     return 0

@@ -149,8 +149,8 @@ class Config:
     # Additive knobs of the JAX package (defaults keep reference behavior)
     device_backend: str = 'auto'  # 'auto' | 'xla' | 'numpy' | 'oracle'
     # Jaccard estimator for the penalty threshold: 'auto' (mash when
-    # run_mash and installed, else minimizer sketches), 'device' (device
-    # MinHash sketches, ROADMAP A12), 'minimizer'
+    # run_mash and installed, else minimizer sketches), 'device' (MinHash
+    # sketches on the run's device), 'minimizer'
     sketch_mode: str = 'auto'
     # Spaced-seed pattern for the device sketches; None = contiguous k-mers
     seed_pattern: str | None = None

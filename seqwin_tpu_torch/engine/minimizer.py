@@ -39,6 +39,21 @@ def _seed_table(seeds, device) -> torch.Tensor:
     return tab.to(device)
 
 
+def canon_hashes(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical ntHash (int64 bit patterns) of the k-mer starting at each
+    position of a uint8 code stream, by the common-frame closed form; the
+    caller masks k-mers that hold a non-ACGT base or leave the stream."""
+    iota = torch.arange(codes.numel(), dtype=torch.int64, device=codes.device)
+    c = codes.long()
+    im33, im31 = iota % 33, iota % 31
+    neg33, neg31 = (33 - im33) % 33, (31 - im31) % 31
+    a = _srol_parts(_seed_table(SEEDS, codes.device)[c], neg33, neg31)
+    b = _srol_parts(_seed_table(SEEDS_COMP, codes.device)[c], im33, im31)
+    fwd = _srol_parts(_window_xor(a, k), (im33 + k - 1) % 33, (im31 + k - 1) % 31)
+    rev = _srol_parts(_window_xor(b, k), neg33, neg31)
+    return fwd + rev
+
+
 def _window_rmin(mh: torch.Tensor, w: int):
     """(min, index) of the rightmost minimum of every window of ``w``
     consecutive entries ending at each index: per-block prefix and suffix
@@ -92,18 +107,7 @@ def scan_core(codes: torch.Tensor, is_start: torch.Tensor, k: int, w: int):
     rec = torch.cumsum(is_start.long(), 0) - 1
     rec_start = torch.cummax(torch.where(is_start, iota, 0), 0).values
     base_pos = iota - rec_start
-
-    # --- per-base rotated seeds (common-frame trick) ---
-    c = codes.long()
-    im33, im31 = iota % 33, iota % 31
-    neg33, neg31 = (33 - im33) % 33, (31 - im31) % 31
-    a = _srol_parts(_seed_table(SEEDS, dev)[c], neg33, neg31)
-    b = _srol_parts(_seed_table(SEEDS_COMP, dev)[c], im33, im31)
-
-    # --- windowed XOR of width k, then rotate into the final frame ---
-    fwd = _srol_parts(_window_xor(a, k), (im33 + k - 1) % 33, (im31 + k - 1) % 31)
-    rev = _srol_parts(_window_xor(b, k), neg33, neg31)
-    canon = fwd + rev
+    canon = canon_hashes(codes, k)
 
     # --- k-mer validity (N handling + record containment) ---
     bad_win = _window_any(codes > 3, k)

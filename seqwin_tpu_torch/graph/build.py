@@ -17,8 +17,9 @@ the chunks with the plain torch sort engine (`engine/minimizer.py`) instead,
 which does not split records. ``devices != 1`` takes the multi-device build
 (`parallel/distributed.py`) over that many cards of this host, with the
 same output. ``backend='numpy'|'oracle'`` builds on the host with
-`ops/host_build.py` or `ops/oracle.py` and touches no device. Multi-host
-builds raise `NotImplementedError` naming their ROADMAP item.
+`ops/host_build.py` or `ops/oracle.py` and touches no device.
+``SEQWIN_TPU_MULTIHOST`` set takes the multi-host build
+(`parallel/multihost.py`) over every process of a `torch.distributed` group.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from ..engine.aggregate import HostGraph, aggregate_device
 from ..engine.hybrid import scan_chunk_device, scan_record_blocks
 from ..engine.minimizer import scan_chunk_sort
 from ..io.fasta import U32_MAX, iter_assemblies, parse_fasta_codes
+from ..parallel import multihost
 from ..parallel.distributed import build_distributed
 from .dtypes import KMER_DTYPE
 
@@ -95,12 +97,15 @@ def build_deferred(
     ``graph`` keeps the k-mer stream and edges on the device
     (`engine.aggregate.DeviceGraph`; ``graph.nodes`` is on the host). The
     multi-device and host builds hand back host arrays in an
-    `engine.aggregate.HostGraph` of the same interface."""
-    if keep_codes:
-        raise NotImplementedError('keep_codes: ROADMAP queue A12 (device sketches)')
+    `engine.aggregate.HostGraph` of the same interface.
+
+    ``keep_codes`` keeps the parsed base codes on ``graph.record_codes``
+    (per assembly, the list of its record code arrays; host RAM of the
+    dataset's size), so the device MinHash sketches need no second parse.
+    The multi-host build keeps none."""
     return _build_impl(assembly_paths, kmerlen, windowsize, is_targets,
                        n_cpu=n_cpu, low_memory=low_memory, backend=backend,
-                       defer=True, devices=devices, device=device)
+                       defer=True, devices=devices, device=device, keep_codes=keep_codes)
 
 
 def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
@@ -120,7 +125,7 @@ def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
 
 def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 n_cpu: int, low_memory: bool, backend: str, defer: bool,
-                devices: int = 1, device=None):
+                devices: int = 1, device=None, keep_codes: bool = False):
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
     if len(paths) != len(targets):
@@ -128,19 +133,33 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     if len(paths) > U32_MAX:
         raise ValueError('Number of input assemblies exceeds uint32 range')
     if backend in ('numpy', 'oracle'):
-        kmers, nodes, edges, offsets, record_ids = _build_numpy(
+        kmers, nodes, edges, offsets, record_ids, seqs = _build_numpy(
             paths, kmerlen, windowsize, targets, oracle=backend == 'oracle')
-        if defer:
-            return HostGraph(kmers, nodes, edges), offsets, record_ids
-        return kmers, nodes, edges, offsets, record_ids
+        if not defer:
+            return kmers, nodes, edges, offsets, record_ids
+        graph = HostGraph(kmers, nodes, edges)
+        if keep_codes:
+            graph.record_codes = seqs
+        return graph, offsets, record_ids
     dev = resolve_device(device)
-    if os.environ.get('SEQWIN_TPU_MULTIHOST') is not None:
-        raise NotImplementedError('multi-host build: ROADMAP queue A13 (multi-host half)')
+    # '' or '1': an initialized process group (or one process);
+    # 'coord:port,nproc,pid' initializes it. The local shards are every card
+    # of this process, or ``devices`` shards on the CPU
+    mh = os.environ.get('SEQWIN_TPU_MULTIHOST')
+    if mh is not None:
+        if mh not in ('', '1'):
+            coord, nproc, pid = mh.rsplit(',', 2)
+            multihost.initialize(coord, int(nproc), int(pid))
+        return multihost.build_multihost(
+            paths, kmerlen, windowsize, targets,
+            _shard_devices(devices if dev.type == 'cpu' else 0, dev),
+            n_cpu=n_cpu, low_memory=low_memory, defer=defer)
     if devices != 1:
         shards = _shard_devices(devices, dev)
         if len(shards) > 1:
-            return build_distributed(paths, kmerlen, windowsize, targets, shards,
-                                     n_cpu=n_cpu, defer=defer, low_memory=low_memory)
+            return build_distributed(paths, kmerlen, windowsize, targets, shards, n_cpu=n_cpu,
+                                     defer=defer, low_memory=low_memory,
+                                     keep_codes=keep_codes)
     use_sort_engine = os.environ.get('SEQWIN_TPU_TORCH_SCAN', 'hybrid') == 'sort'
     scan_chunk = scan_chunk_sort if use_sort_engine else scan_chunk_device
     chunk_budget = LOW_MEMORY_CHUNK_BASES if low_memory else int(
@@ -148,6 +167,7 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
 
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
+    kept_codes: list[list[np.ndarray]] = []
     chunk_results = []
     chunk_codes: list[np.ndarray] = []
     chunk_rec_base = 0
@@ -167,6 +187,8 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     for ids, codes_list in iter_assemblies(paths, n_cpu):
         record_ids.append(tuple(ids))
         record_offsets.append(record_offsets[-1] + len(ids))
+        if keep_codes:
+            kept_codes.append(codes_list)
         for codes in codes_list:
             if not use_sort_engine and len(codes) > chunk_budget:
                 # a record longer than the budget: its own halo'd blocks,
@@ -187,6 +209,8 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     with record_function('build.aggregate'):
         res = aggregate_device(chunk_results, np.asarray(targets, dtype=bool), defer=defer)
     if defer:
+        if keep_codes:
+            res.record_codes = kept_codes
         return res, offsets, record_ids
     kmers, nodes, edges = res
     return kmers, nodes, edges, offsets, record_ids
@@ -196,7 +220,8 @@ def _build_numpy(paths, kmerlen, windowsize, targets, oracle=False):
     """Device-free reference backends: the vectorized NumPy builder
     (`ops/host_build.py`, ``backend='numpy'``) or the per-position oracle
     (`ops/oracle.py`, ``backend='oracle'``, slow -- differential tests
-    only). Returns (kmers, nodes, edges, record_offsets, record_ids)."""
+    only). Returns (kmers, nodes, edges, record_offsets, record_ids, the
+    parsed record codes per assembly)."""
     if oracle:
         from ..ops.oracle import build_graph
     else:
@@ -209,7 +234,7 @@ def _build_numpy(paths, kmerlen, windowsize, targets, oracle=False):
         record_ids.append(tuple(ids))
         record_seqs.append(codes_list)
     kmers, nodes, edges, offsets = build_graph(record_seqs, kmerlen, windowsize, targets)
-    return kmers, nodes, edges, offsets, record_ids
+    return kmers, nodes, edges, offsets, record_ids, record_seqs
 
 
 def kept_node_layout(

@@ -1,8 +1,13 @@
-"""Assembly distance estimation with the external `mash` tool.
+"""Assembly distance estimation.
 
-Counterpart: the subprocess half of `seqwin_tpu/mash.py` (`sketch`, `dist`,
-`get_jaccard`), with the `mash dist` table parsed without pandas. The
-device MinHash sketches of the JAX package are ROADMAP A12.
+Counterpart: `seqwin_tpu/mash.py`. Two interchangeable estimators of
+pairwise Jaccard indices:
+
+1. The external `mash` tool (`sketch`, `dist`, `get_jaccard`), with the
+   `mash dist` table parsed without pandas.
+2. Bottom-k MinHash sketches computed with torch ops on the run's device
+   (`device_sketches` + `sketch_jaccard_matrix`, ``--sketch-mode device``):
+   one stream per assembly, its records joined by runs of 255 separators.
 """
 from __future__ import annotations
 
@@ -12,8 +17,14 @@ from collections.abc import Generator, Iterable
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from .device import resolve_device
+from .engine.minimizer import canon_hashes
+from .engine.phase1 import _window_any
 from .ncbi import Table, read_tsv
+from .ops import u64
+from .ops.spaced import parse_seed, spaced_canon
 from .utils import claim_file, fail, run_tool
 
 logger = logging.getLogger(__name__)
@@ -106,3 +117,125 @@ def get_jaccard(
         _, stderr = proc.communicate()
         if proc.returncode != 0:
             fail(RuntimeError, f"'mash dist' exited with code {proc.returncode}:\n{stderr}")
+
+
+# ---------------------------------------------------------------------------
+# Device MinHash sketches
+# ---------------------------------------------------------------------------
+
+_MAX_KEY = (1 << 63) - 1  # u64.key of the all-ones hash: "no value"
+
+
+def _bottom_k_tail(vals: torch.Tensor, valid: torch.Tensor, sketchsize: int) -> torch.Tensor:
+    """The ``sketchsize`` smallest distinct valid values (int64 bit
+    patterns) in ascending unsigned order. The all-ones hash is the JAX
+    package's padding sentinel and never enters a sketch."""
+    keys = torch.unique(u64.key(vals[valid]))  # sorted ascending
+    return keys[keys != _MAX_KEY][:sketchsize] ^ u64.SIGN
+
+
+def _contiguous_canon(codes: torch.Tensor, k: int):
+    """(canonical ntHash int64[n], valid bool[n]) of the k-mer starting at
+    each position of a separator-joined stream (a 255 byte invalidates every
+    k-mer spanning it)."""
+    n = codes.numel()
+    valid = ~_window_any(codes > 3, k) & (torch.arange(n, device=codes.device) <= n - k)
+    return canon_hashes(codes, k), valid
+
+
+def _separator_run(seed_pattern: str | None) -> int:
+    """Inter-record separator run length that guarantees no window hashes
+    bases from two records.
+
+    For contiguous k-mers every window position is a care position, so ONE
+    255 byte invalidates every window spanning it. For a spaced seed, a
+    separator landing on a don't-care ('0') position does NOT invalidate the
+    window, so a single separator lets windows straddle the junction and hash
+    a phantom cross-record k-mer. A run one longer than the pattern's longest
+    zero-run closes this: patterns start and end with '1', so a window that
+    overlaps the run's edge has a care position (index 0 or k-1) on a
+    separator, and a window containing the whole run cannot fit it inside
+    any single zero-gap.
+    """
+    if seed_pattern is None:
+        return 1
+    _, blocks = parse_seed(seed_pattern)
+    max_gap = max(
+        (b[0] - a[1] for a, b in zip(blocks, blocks[1:])), default=0)
+    return max_gap + 1
+
+
+def device_sketches(
+    record_codes_by_assembly: list[list[np.ndarray]],
+    kmerlen: int,
+    sketchsize: int = 1000,
+    seed_pattern: str | None = None,
+    device=None,
+) -> list[np.ndarray]:
+    """Bottom-k MinHash sketch per assembly, computed on ``device`` (default:
+    the GPU; raises when there is none).
+
+    Each assembly is one stream of its records joined by `_separator_run`
+    255 bytes; its sketch is the ``sketchsize`` smallest distinct canonical
+    hashes of the stream's valid k-mers, uint64 ascending (shorter when the
+    assembly has fewer). ``seed_pattern`` switches from contiguous k-mers to
+    spaced-seed hashing (`ops/spaced.py`; the pattern's length replaces
+    ``kmerlen``).
+    """
+    dev = resolve_device(device)
+    sep = _separator_run(seed_pattern)
+    sketches = []
+    for recs in record_codes_by_assembly:
+        n = sum(len(c) for c in recs) + max(0, len(recs) - 1) * sep
+        if n == 0:
+            sketches.append(np.zeros(0, np.uint64))
+            continue
+        stream = np.full(n, 255, dtype=np.uint8)
+        off = 0
+        for c in recs:
+            stream[off:off + len(c)] = c
+            off += len(c) + sep
+        codes = torch.from_numpy(stream).to(dev)
+        hashes = (_contiguous_canon(codes, kmerlen) if seed_pattern is None
+                  else spaced_canon(codes, seed_pattern))
+        sketches.append(u64.to_numpy(_bottom_k_tail(*hashes, sketchsize)))
+    return sketches
+
+
+def _pair_jaccard(S: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor, s: int) -> torch.Tensor:
+    """Mash-style Jaccard of sketch-row pairs (rows of unsigned sort keys,
+    `_MAX_KEY`-padded): merge the two sorted sketches, keep the smallest s
+    distinct values of the union, and count how many occur in both. float64,
+    as the JAX package computes it."""
+    x = torch.sort(torch.cat([S[ii], S[jj]], 1), 1).values
+    real = x != _MAX_KEY
+    dup = torch.cat([torch.zeros_like(real[:, :1]), (x[:, 1:] == x[:, :-1]) & real[:, 1:]], 1)
+    distinct_rank = torch.cumsum((real & ~dup).long(), 1)
+    shared = (dup & (distinct_rank <= s)).sum(1)
+    total = distinct_rank[:, -1].clamp(max=s)
+    return torch.where(total > 0, shared.double() / total.clamp(min=1).double(), 0.0)
+
+
+def sketch_jaccard_matrix(sketches: list[np.ndarray], sketchsize: int, device=None) -> np.ndarray:
+    """Full pairwise Jaccard matrix (float64) from bottom-k sketches, on
+    ``device`` (default: the GPU). The pairs of the upper triangle and the
+    diagonal go through `_pair_jaccard` in blocks of at most 2^24 values."""
+    dev = resolve_device(device)
+    n = len(sketches)
+    mtx = np.zeros((n, n), dtype=np.float64)
+    if n == 0:
+        return mtx
+    S = np.full((n, sketchsize), _MAX_KEY, dtype=np.int64)
+    for i, sk in enumerate(sketches):
+        m = min(len(sk), sketchsize)
+        S[i, :m] = np.asarray(sk[:m], dtype=np.uint64).view(np.int64) ^ np.int64(u64.SIGN)
+    S_dev = torch.from_numpy(S).to(dev)
+    iu, ju = np.triu_indices(n)
+    block = max(1, (1 << 24) // (2 * sketchsize))
+    for lo in range(0, len(iu), block):
+        sel = slice(lo, lo + block)
+        vals = _pair_jaccard(S_dev, torch.from_numpy(iu[sel]).to(dev),
+                             torch.from_numpy(ju[sel]).to(dev), sketchsize).cpu().numpy()
+        mtx[iu[sel], ju[sel]] = vals
+        mtx[ju[sel], iu[sel]] = vals
+    return mtx

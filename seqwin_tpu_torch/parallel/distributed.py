@@ -37,8 +37,16 @@ extraction on each), and its emission stream joins the routing of the shard
 it terminates (`_assign_with_oversized`), after that shard's own stream.
 ``low_memory`` builds batches of whole assemblies of at least
 ``len(devices) * LOW_MEMORY_CHUNK_BASES`` bases one after another and merges
-them on the host (`merge_graph_parts`). Multi-host builds (A13) are not
-ported; `graph.build` refuses them.
+them on the host (`merge_graph_parts`).
+
+Across the processes of a `torch.distributed` group (gloo; the multi-host
+build, `parallel/multihost.py`) the shards are every process's local shards
+in rank order and the hash buckets range over all of them. The pre-pass
+reads are all-gathered on the host, a block bound for another process's
+owner travels by `all_to_all_single` on host-staged tensors (its size is in
+the gathered histograms), and each owner's arrays are gathered back in owner
+order. Records are not sequence-sharded there. A single process takes none
+of these collectives.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..engine.aggregate import (
@@ -272,19 +281,12 @@ def _route_blocks(bucket, payloads, sizes: list[int]):
     return blocks, _bucket_counts(bucket, len(sizes))
 
 
-def _exchange(blocks, devices):
-    """Copy each destination's block to its device (no copy when it is
-    already there)."""
-    return [[b.to(dev, non_blocking=True) for b, dev in zip(per_dest, devices)]
-            for per_dest in blocks]
-
-
-def _route_shard(e_oh, e_pos, e_rec, e_asm, e_sizes: list[int], p_sizes: list[int], devices):
-    """Adjacency pairs at the source, routing and exchange of one shard's
-    emission streams. Returns the node blocks (oh, pos, rec, asm) and pair
-    blocks (u, v, asm), each a list over owners on the owner's device, and
-    the device's own counts of both per owner."""
-    n_dev = len(devices)
+def _route_shard(e_oh, e_pos, e_rec, e_asm, e_sizes: list[int], p_sizes: list[int]):
+    """Adjacency pairs at the source and routing of one shard's emission
+    streams to the ``len(e_sizes)`` owners. Returns the node blocks (oh,
+    pos, rec, asm) and pair blocks (u, v, asm), each a list over owners on
+    the shard's device, and the device's own counts of both per owner."""
+    n_dev = len(e_sizes)
     pair_ok = e_rec[:-1] == e_rec[1:]
     a, b = e_oh[:-1], e_oh[1:]
     p_u = u64.umin(a, b)
@@ -293,16 +295,16 @@ def _route_shard(e_oh, e_pos, e_rec, e_asm, e_sizes: list[int], p_sizes: list[in
         (e_oh, e_pos, e_rec, e_asm), e_sizes)
     pair_blocks, p_counts = _route_blocks(
         _pair_bucket(p_u, pair_ok, n_dev), (p_u, u64.umax(a, b), e_asm[:-1]), p_sizes)
-    return (_exchange(node_blocks, devices), _exchange(pair_blocks, devices),
-            e_counts, p_counts)
+    return node_blocks, pair_blocks, e_counts, p_counts
 
 
 def _shard_step(shard, k: int, w: int, emit_cap: int, count: int,
-                e_sizes: list[int], p_sizes: list[int], devices, extra=None):
+                e_sizes: list[int], p_sizes: list[int], extra=None):
     """Build step of one shard on kernel B3: pfx extraction, the
     sequence-sharded records' streams it terminates (``extra``) after it,
-    then `_route_shard`. Returns the node and pair blocks and the shard's
-    checks, {name: (device tensor, the value the pre-pass expects)}."""
+    then `_route_shard`. Returns the node and pair blocks (on the shard's
+    device) and the shard's checks, {name: (device tensor, the value the
+    pre-pass expects)}."""
     streams, checks = [], {}
     if shard is not None:
         zpfx, lrank, _ = phase1_pfx(shard['codes'], k, w)
@@ -314,7 +316,7 @@ def _shard_step(shard, k: int, w: int, emit_cap: int, count: int,
     if extra is not None:
         streams.append(extra)
     node_blocks, pair_blocks, e_counts, p_counts = _route_shard(
-        *(torch.cat(c) for c in zip(*streams)), e_sizes, p_sizes, devices)
+        *(torch.cat(c) for c in zip(*streams)), e_sizes, p_sizes)
     checks.update({'minimizer block sizes': (e_counts, e_sizes),
                    'pair block sizes': (p_counts, p_sizes)})
     return node_blocks, pair_blocks, checks
@@ -348,27 +350,115 @@ def _read_prepass(pre, n_dev: int):
     return counts, e_hist, p_hist
 
 
-def _step(shards, k: int, w: int, counts, e_hist, p_hist, devices, extras=None):
-    """Enqueue the build step of every shard in source order (no sync), so
-    each owner receives its blocks in scan order. Returns the blocks each
-    owner received, per source, and the checks (name, shard, device
+def _step(shards, k: int, w: int, counts, e_hist, p_hist, devices, extras=None,
+          first: int = 0):
+    """Enqueue the build step of every local shard in source order (no
+    sync) and copy each block bound for a local owner to its device, so
+    each owner receives its blocks in scan order. ``first`` is the global
+    index of this process's first shard; ``counts`` and the histograms
+    cover every shard of every process. Returns the blocks each local owner
+    received, per source; the shards' blocks (global source, node blocks,
+    pair blocks) when owners of other processes need them
+    (`_exchange_across`), else None; and the checks (name, shard, device
     tensor, expected)."""
-    n_dev = len(devices)
-    rx_nodes = [[] for _ in range(n_dev)]
-    rx_pairs = [[] for _ in range(n_dev)]
+    rx_nodes = [[] for _ in devices]
+    rx_pairs = [[] for _ in devices]
+    sent = [] if e_hist.shape[1] > len(devices) else None
     checks = []
     for d, s in enumerate(shards):
         x = extras[d] if extras else None
         if s is None and x is None:
             continue
-        count, clean = counts[d]
+        g = first + d
+        count, clean = counts[g]
         node_blocks, pair_blocks, shard_checks = _shard_step(
-            s, k, w, max(count, clean), count, e_hist[d].tolist(), p_hist[d].tolist(), devices, x)
-        for j in range(n_dev):
-            rx_nodes[j].append([b[j] for b in node_blocks])
-            rx_pairs[j].append([b[j] for b in pair_blocks])
-        checks += [(name, d, got, want) for name, (got, want) in shard_checks.items()]
-    return rx_nodes, rx_pairs, checks
+            s, k, w, max(count, clean), count, e_hist[g].tolist(), p_hist[g].tolist(), x)
+        for j, dev in enumerate(devices):
+            rx_nodes[j].append([b[first + j].to(dev, non_blocking=True) for b in node_blocks])
+            rx_pairs[j].append([b[first + j].to(dev, non_blocking=True) for b in pair_blocks])
+        if sent is not None:
+            sent.append((g, node_blocks, pair_blocks))
+        checks += [(name, g, got, want) for name, (got, want) in shard_checks.items()]
+    return rx_nodes, rx_pairs, sent, checks
+
+
+def _allgather_ragged(a: np.ndarray) -> list[np.ndarray]:
+    """Every process's 1-D array ``a`` (one dtype on all of them, any
+    numpy dtype) in rank order: an all-gather of the byte sizes, then one of
+    the bytes padded to the largest, on host tensors."""
+    raw = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
+    n_proc = dist.get_world_size()
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(n_proc)]
+    dist.all_gather(sizes, torch.tensor([raw.numel()], dtype=torch.int64))
+    cap = max(1, *(int(n) for n in sizes))
+    buf = torch.zeros(cap, dtype=torch.uint8)
+    buf[:raw.numel()] = raw
+    out = [torch.empty(cap, dtype=torch.uint8) for _ in range(n_proc)]
+    dist.all_gather(out, buf)
+    return [o[:int(n)].numpy().view(a.dtype) for o, n in zip(out, sizes)]
+
+
+def _multiprocess() -> bool:
+    """True inside a process group of more than one process."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _process_shards(n_local: int) -> list[int]:
+    """The shard count of every process in rank order (no collective in a
+    single process)."""
+    if not _multiprocess():
+        return [n_local]
+    return [int(a[0]) for a in _allgather_ragged(np.array([n_local], np.int64))]
+
+
+def _gather_prepass(counts, e_hist, p_hist):
+    """Every process's pre-pass reads in rank order, i.e. global shard
+    order: one gather of one row per shard (count, clean, e_hist, p_hist)."""
+    n_dev = e_hist.shape[1]
+    rows = np.concatenate([np.asarray(counts, np.int64).reshape(-1, 2), e_hist, p_hist], 1)
+    rows = np.concatenate([r.reshape(-1, 2 + 2 * n_dev)
+                           for r in _allgather_ragged(rows.ravel())])
+    return ([tuple(c) for c in rows[:, :2].tolist()], rows[:, 2:2 + n_dev],
+            rows[:, 2 + n_dev:])
+
+
+def _exchange_across(sent: list, rx: list, hist: np.ndarray, per_proc: list[int], devices,
+                     n_cols: int):
+    """The blocks that cross processes, of one kind: ``sent`` holds (global
+    source shard, blocks) of this process's shards, blocks[i][j] payload
+    column i (of ``n_cols``, int64) for owner j, and ``hist`` is the kind's
+    gathered histogram, so the split sizes need no exchange. One
+    `all_to_all_single` per payload column on host-staged blocks, which a
+    process without blocks joins too. Each local owner's list in ``rx`` gains
+    its received blocks in global source order: those of lower ranks before
+    this process's own, the others after."""
+    rank = dist.get_rank()
+    bounds = np.cumsum([0, *per_proc])
+    lo, hi = int(bounds[rank]), int(bounds[rank + 1])
+    ranks = [r for r in range(len(per_proc)) if r != rank]
+    srcs = [g for g, _ in sent]
+    send_split, recv_split = [0] * len(per_proc), [0] * len(per_proc)
+    for r in ranks:
+        send_split[r] = int(hist[srcs, bounds[r]:bounds[r + 1]].sum())
+        recv_split[r] = int(hist[bounds[r]:bounds[r + 1], lo:hi].sum())
+    received = []
+    for i in range(n_cols):
+        parts = [blocks[i][j].cpu() for r in ranks for _, blocks in sent
+                 for j in range(bounds[r], bounds[r + 1])]
+        send = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64)
+        recv = torch.empty(sum(recv_split), dtype=torch.int64)
+        dist.all_to_all_single(recv, send, recv_split, send_split)
+        received.append(recv)
+    before, after = [[] for _ in rx], [[] for _ in rx]
+    off = 0
+    for r in ranks:
+        for g in range(bounds[r], bounds[r + 1]):
+            for jl, j in enumerate(range(lo, hi)):
+                n = int(hist[g, j])
+                (before if r < rank else after)[jl].append(
+                    [c[off:off + n].to(devices[jl]) for c in received])
+                off += n
+    return [b + own + a for b, own, a in zip(before, rx, after)]
 
 
 def _check_step(checks) -> None:
@@ -381,18 +471,19 @@ def _check_step(checks) -> None:
 
 
 def _layout(record_codes: list[np.ndarray], record_offsets, k: int, w: int, devices,
-            rec_base0: int = 0):
+            rec_base0: int = 0, sequence_shard: bool = True):
     """Host side of a build over ``devices``: the shards' stream layouts
     (`_shard_layout`) and, per shard, the concatenated streams (oh, pos,
     rec, asm) of the sequence-sharded records it terminates, or None. A
     record above twice the balanced share is sequence-sharded
-    (`scan_record_sharded`: one kernel B1 launch per block); when such
-    records cannot terminate their shards, every record takes the plain
-    layout."""
+    (`scan_record_sharded`: one kernel B1 launch per block) when
+    ``sequence_shard``; when such records cannot terminate their shards,
+    every record takes the plain layout."""
     n_dev = len(devices)
     lengths = [len(c) for c in record_codes]
     seq_budget = max(1 << 16, -(-2 * int(sum(lengths)) // n_dev))
-    over = {i for i, ln in enumerate(lengths) if ln > seq_budget} if n_dev > 1 else set()
+    over = ({i for i, ln in enumerate(lengths) if ln > seq_budget}
+            if n_dev > 1 and sequence_shard else set())
     shard_of = _assign_with_oversized(lengths, over, n_dev) if over else None
     if over and shard_of is None:
         logger.warning('oversized records cannot terminate their shards (too many near '
@@ -424,39 +515,60 @@ def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
     covers them. Returns (kmers, nodes, edges, n_scanned): the structured
     arrays, byte-equal to the single-device build, and the number of
     shards that held stream bases (one kernel B2 and one kernel B3 launch
-    each)."""
+    each).
+
+    In a process group of more than one process every process calls this
+    with its own records (consecutive across ranks) and local devices; the
+    shards of all processes build together and every process gets the
+    whole arrays (``n_scanned`` counts its own shards)."""
     devices = [torch.device(d) for d in devices]
-    n_dev = len(devices)
+    per_proc = _process_shards(len(devices))
+    first = sum(per_proc[:dist.get_rank()]) if len(per_proc) > 1 else 0
+    n_dev = sum(per_proc)
     k, w = kmerlen, windowsize
-    shards, extras = _layout(record_codes, record_offsets, k, w, devices, rec_base0)
+    shards, extras = _layout(record_codes, record_offsets, k, w, devices, rec_base0,
+                             sequence_shard=len(per_proc) == 1)
 
     with record_function('distributed.prepass'):
         counts, e_hist, p_hist = _read_prepass(_prepass(shards, k, w, n_dev, extras), n_dev)
+        if len(per_proc) > 1:
+            counts, e_hist, p_hist = _gather_prepass(counts, e_hist, p_hist)
     with record_function('distributed.step'):
-        rx_nodes, rx_pairs, checks = _step(shards, k, w, counts, e_hist, p_hist, devices,
-                                           extras)
+        rx_nodes, rx_pairs, sent, checks = _step(shards, k, w, counts, e_hist, p_hist, devices,
+                                                 extras, first)
+    if sent is not None:
+        with record_function('distributed.exchange'):
+            # the payload columns of `_route_shard`: (oh, pos, rec, asm), (u, v, asm)
+            rx_nodes = _exchange_across([(g, nb) for g, nb, _ in sent], rx_nodes, e_hist,
+                                        per_proc, devices, 4)
+            rx_pairs = _exchange_across([(g, pb) for g, _, pb in sent], rx_pairs, p_hist,
+                                        per_proc, devices, 3)
+        del sent
 
-    # --- owner merge, concatenated in owner order ---
+    # --- owner merge, concatenated in owner order; the k-mer ranges of a
+    # process's first owner start after those of every earlier owner ---
     tmask = np.asarray(is_target, dtype=bool)
     kmers, nodes, edges = [], [], []
-    base = 0
+    base = int(e_hist[:, :first].sum())
     with record_function('distributed.merge'):
         for j, dev in enumerate(devices):
-            if e_hist[:, j].sum():
+            if e_hist[:, first + j].sum():
                 oh, pos, rec, asm = (torch.cat(c) for c in zip(*rx_nodes[j]))
                 s_pos, s_rec, node_hash, starts, stops, n_tar, n_neg = _merge_nodes(
                     oh, pos, rec, asm, torch.from_numpy(tmask).to(dev))
                 kmers.append(_kmers_host(s_pos, s_rec))
                 nodes.append(_nodes_host(node_hash, starts, stops, n_tar, n_neg, base))
                 base += s_pos.numel()
-            if p_hist[:, j].sum():
+            if p_hist[:, first + j].sum():
                 u, v, asm = (torch.cat(c) for c in zip(*rx_pairs[j]))
                 edges.append(_edges_host(*_reduce_edges(u, v, asm)))
+    out = [np.concatenate(parts or [np.zeros(0, dtype)])
+           for parts, dtype in ((kmers, KMER_DTYPE), (nodes, NODE_DTYPE), (edges, EDGE_DTYPE))]
+    if len(per_proc) > 1:
+        with record_function('distributed.gather'):
+            out = [np.concatenate(_allgather_ragged(a)) for a in out]
     _check_step(checks)
-    return (np.concatenate(kmers or [np.zeros(0, KMER_DTYPE)]),
-            np.concatenate(nodes or [np.zeros(0, NODE_DTYPE)]),
-            np.concatenate(edges or [np.zeros(0, EDGE_DTYPE)]),
-            sum(s is not None for s in shards))
+    return (*out, sum(s is not None for s in shards))
 
 
 def merge_graph_parts(parts):
@@ -535,13 +647,17 @@ def merge_graph_parts(parts):
 
 
 def build_distributed(assembly_paths, kmerlen: int, windowsize: int, is_targets,
-                      devices, n_cpu: int = 1, defer: bool = False, low_memory: bool = False):
+                      devices, n_cpu: int = 1, defer: bool = False, low_memory: bool = False,
+                      keep_codes: bool = False):
     """Multi-device graph build over ``devices`` (torch devices, one per
     shard, repeats allowed). Same output contract and bytes as
     `graph.build`: (kmers, nodes, edges, record_offsets, record_ids), or
     with ``defer`` (graph, record_offsets, record_ids) where ``graph`` is an
     `engine.aggregate.HostGraph` whose ``n_chunks`` counts the shard streams
     that held bases, over all batches.
+
+    ``keep_codes`` (with ``defer``) keeps the parsed record codes per
+    assembly on ``graph.record_codes``.
 
     ``low_memory`` bounds the staged streams: assemblies are built in
     consecutive whole-assembly batches, each closed once it reaches
@@ -555,6 +671,7 @@ def build_distributed(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     budget = len(devices) * LOW_MEMORY_CHUNK_BASES if low_memory else None
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
+    kept_codes: list[list[np.ndarray]] = []
     parts = []
     batch_codes: list[np.ndarray] = []
     batch_bases = 0
@@ -574,6 +691,8 @@ def build_distributed(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     for ids, codes_list in iter_assemblies(paths, n_cpu):
         record_ids.append(tuple(ids))
         record_offsets.append(record_offsets[-1] + len(ids))
+        if keep_codes:
+            kept_codes.append(codes_list)
         batch_codes.extend(codes_list)
         batch_bases += sum(len(c) for c in codes_list)
         if budget is not None and batch_bases >= budget:
@@ -587,6 +706,8 @@ def build_distributed(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         nodes = np.zeros(0, NODE_DTYPE)
         edges = np.zeros(0, EDGE_DTYPE)
     if defer:
-        return (HostGraph(kmers, nodes, edges, n_chunks=sum(p[3] for p in parts)),
-                offsets, record_ids)
+        graph = HostGraph(kmers, nodes, edges, n_chunks=sum(p[3] for p in parts))
+        if keep_codes:
+            graph.record_codes = kept_codes
+        return graph, offsets, record_ids
     return kmers, nodes, edges, offsets, record_ids

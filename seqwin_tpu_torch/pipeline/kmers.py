@@ -5,7 +5,8 @@ port's build (`graph.build_deferred` on the card, kernel B1; with
 ``devices`` above one the multi-device build, kernels B2 and B3; with
 ``backend='numpy'|'oracle'`` the host build). The
 penalty formula, threshold estimation and filtering order follow the
-reference, in float64 host math.
+reference, in float64 host math. ``sketch_mode='device'`` estimates the
+threshold from MinHash sketches computed on the run's device (`mash.py`).
 
 After `KmerGraph.filter()` the instance holds numpy arrays only: the device
 handle is released, so the forked marker workers never meet a tensor and
@@ -25,6 +26,8 @@ from ..config import HAS_MASH, WORKINGDIR, Config, RunState
 from ..engine.aggregate import HostGraph
 from ..graph import HashGraph
 from ..graph.build import build_deferred, kept_node_layout
+from ..io.fasta import iter_assemblies
+from ..mash import device_sketches, sketch_jaccard_matrix
 from ..utils import log_elapsed
 from .subgraphs import get_subgraphs
 
@@ -212,6 +215,22 @@ class KmerGraph:
         return nodes, edges, graph, node_penalty
 
 
+def _device_jaccard(assemblies: Assemblies, config: Config, records=None) -> NDArray:
+    """Jaccard matrix of bottom-k MinHash sketches (the mash-free
+    estimator), on the run's device; the host builds
+    (``device_backend='numpy'|'oracle'``) promise no GPU, so there on the
+    CPU. ``records`` are the build's parsed codes per assembly; without
+    them (the multi-host build keeps none) the FASTAs are parsed here."""
+    device = 'cpu' if config.device_backend in ('numpy', 'oracle') else config.device
+    logger.info(' - Computing on-device MinHash sketches...')
+    if records is None:
+        records = [codes for _, codes in iter_assemblies([str(p) for p in assemblies.path],
+                                                           config.n_cpu)]
+    sketches = device_sketches(records, config.kmerlen, config.sketchsize,
+                               seed_pattern=config.seed_pattern, device=device)
+    return sketch_jaccard_matrix(sketches, config.sketchsize, device=device)
+
+
 def _expected_frac(jaccard_mtx: NDArray) -> np.floating:
     """E(frac) = mean(2J / (1+J))."""
     return np.mean(2 * jaccard_mtx / (1 + jaccard_mtx))
@@ -255,9 +274,8 @@ def get_kmers(
     assemblies: Assemblies, config: Config, state: RunState
 ) -> tuple[KmerGraph, NDArray | None]:
     """Build the KmerGraph, estimate thresholds, and filter."""
-    # sketch_mode='device' needs the parsed codes after the build; the
-    # port's build raises for keep_codes (ROADMAP A12), so that mode stops
-    # there
+    # the device sketches need the parsed codes right after the build: the
+    # build keeps them, so every FASTA is parsed once per run
     need_sketches = (
         config.penalty_th is None and not config.no_filter
         and config.sketch_mode == 'device'
@@ -278,7 +296,13 @@ def get_kmers(
     if penalty_th is None:
         logger.info('Calculating penalty threshold...')
         tik = time()
-        if config.sketch_mode != 'minimizer' and config.run_mash and HAS_MASH:
+        if config.sketch_mode == 'device':
+            handle = kmers._graph
+            jaccard = _device_jaccard(assemblies, config, records=handle.record_codes)
+            handle.record_codes = None  # free the kept parse
+            e_absence_tar = 1 - _expected_frac(jaccard[:n_tar, :n_tar])
+            e_presence_neg = _expected_frac(jaccard[n_tar:, :n_tar])
+        elif config.sketch_mode != 'minimizer' and config.run_mash and HAS_MASH:
             jaccard = assemblies.mash(
                 kmerlen=config.kmerlen,
                 sketchsize=config.sketchsize,

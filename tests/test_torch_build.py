@@ -152,7 +152,43 @@ def test_build_deferred_counts_chunks(fastas, monkeypatch, budget):
     assert (want > 1) == bool(budget)
 
 
-def test_keep_codes_raises(fastas):
+@pytest.mark.parametrize('kwargs,env', [
+    ({}, {}),
+    ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
+    (dict(low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 6000}),
+    ({}, {'SEQWIN_TPU_TORCH_SCAN': 'sort'}),
+    (dict(backend='numpy'), {}),
+    (dict(backend='oracle'), {}),
+    (dict(devices=2), {}),
+    (dict(devices=3, low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 1}),
+], ids=['chunks', 'long_records', 'low_memory', 'sort', 'numpy', 'oracle', 'devices',
+        'devices_low_memory'])
+def test_keep_codes_matches_jax(fastas, monkeypatch, kwargs, env):
+    """``keep_codes`` on every build path: ``graph.record_codes`` holds the
+    JAX package's parse, per assembly the list of its record codes, and the
+    graph is the one built without it."""
+    import importlib
+
+    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
+    for key, val in env.items():
+        if key.startswith('SEQWIN'):
+            monkeypatch.setenv(key, val)
+        else:
+            monkeypatch.setattr(build_mod, key, val)
     paths, targets = fastas
-    with pytest.raises(NotImplementedError, match='A12'):
-        build_deferred(paths, K, W, targets, keep_codes=True, device='cpu')
+    if kwargs.get('backend') == 'oracle':
+        paths, targets = paths[:3], targets[:3]
+    graph, offsets, ids = build_deferred(paths, K, W, targets, keep_codes=True, device='cpu',
+                                         **kwargs)
+    want = jax_build_deferred(paths, K, W, targets, backend='numpy', keep_codes=True)[0]
+    assert len(graph.record_codes) == len(want.record_codes) == len(paths)
+    for got_asm, want_asm in zip(graph.record_codes, want.record_codes):
+        assert len(got_asm) == len(want_asm)
+        for a, b in zip(got_asm, want_asm):
+            assert a.dtype == b.dtype == np.uint8
+            np.testing.assert_array_equal(a, b)
+    plain, *_ = build_deferred(paths, K, W, targets, device='cpu', **kwargs)
+    assert plain.record_codes is None
+    np.testing.assert_array_equal(graph.nodes, plain.nodes)
+    graph.release()
+    assert graph.record_codes is None

@@ -1,8 +1,8 @@
 """seqwin_tpu_torch's Config and CLI against the JAX package's: the same
 validation (exception types and messages), the same `config.json`, the
 same option surface, the same Config from the same command line; low
-memory and the host backends give the JAX package's files, and the option
-the port does not have yet stops with its ROADMAP item."""
+memory, the host backends and the device sketches give the JAX package's
+files."""
 import argparse
 import dataclasses
 import json
@@ -174,11 +174,6 @@ def test_version(capsys):
     assert capsys.readouterr().out.strip() == 'seqwin-tpu-torch v0.1.0'
 
 
-UNPORTED = {
-    'sketch_device': (dict(sketch_mode='device'), ['--sketch-mode', 'device'], 'A12'),
-}
-
-
 def _genome_lists(tmp_path, n_tar=3, n_neg=3, length=12_000):
     """Targets from one random root with 0.5% SNPs each, non-targets from an
     8%-diverged root with 1%, each with an N run and cut into two records;
@@ -207,33 +202,6 @@ def _genome_lists(tmp_path, n_tar=3, n_neg=3, length=12_000):
         txt.write_text(''.join(f'{p}\n' for p in paths))
         lists.append(txt)
     return lists
-
-
-@pytest.fixture
-def fasta_lists(tmp_path):
-    return _genome_lists(tmp_path, 1, 1, 400)
-
-
-@pytest.mark.parametrize('case', list(UNPORTED))
-def test_unported_options_raise(tmp_path, fasta_lists, case):
-    kwargs, _, item = UNPORTED[case]
-    tar, neg = fasta_lists
-    with pytest.raises(NotImplementedError, match=item):
-        run(Config(tar_paths=tar, neg_paths=neg, prefix=tmp_path, run_mash=False,
-                   run_blast=False, device='cpu', **kwargs))
-
-
-@pytest.mark.parametrize('case', list(UNPORTED))
-def test_unported_options_exit_nonzero(tmp_path, fasta_lists, monkeypatch, capsys, case):
-    """On the CLI the NotImplementedError becomes a message and exit code 1
-    (the GPU check is passed here so the run reaches the build)."""
-    _, flags, item = UNPORTED[case]
-    tar, neg = fasta_lists
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
-    rc = cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
-                   '--no-mash', '--no-blast', *flags])
-    assert rc == 1
-    assert item in capsys.readouterr().err
 
 
 # the options that run now: Config fields, CLI flags
@@ -298,3 +266,60 @@ def test_cli_options_match_jax(tmp_path, jax_run, small_low_memory_budget, monke
     assert rc == 0
     for name in FILES:
         assert (tmp_path / 'port' / name).read_bytes() == (want / name).read_bytes(), name
+
+
+SEED_PATTERN = '1101100111011'
+SKETCH_OPTIONS = {
+    'device': ['--sketch-mode', 'device'],
+    'device_numpy': ['--sketch-mode', 'device', '--backend', 'numpy'],
+    'device_seed_pattern': ['--sketch-mode', 'device', '--seed-pattern', SEED_PATTERN],
+}
+
+
+@pytest.fixture(scope='module')
+def jax_sketch_runs(jax_run):
+    """The JAX package's runs with the device sketches (its host build), on
+    `jax_run`'s inputs, without and with a seed pattern."""
+    import seqwin_tpu
+
+    tar, neg, jax_dir = jax_run
+    out = {}
+    for title, kw in (('jax_sketch', {}), ('jax_sketch_seed', dict(seed_pattern=SEED_PATTERN))):
+        seqwin_tpu.run(seqwin_tpu.Config(tar_paths=tar, neg_paths=neg, prefix=jax_dir.parent,
+                                          title=title, run_mash=False, run_blast=False, n_cpu=1,
+                                          device_backend='numpy', sketch_mode='device',
+                                          **K_W, **kw))
+        out[title] = jax_dir.parent / title
+    return tar, neg, out
+
+
+@pytest.mark.parametrize('case', list(SKETCH_OPTIONS))
+def test_cli_sketch_mode_device_matches_jax(tmp_path, jax_sketch_runs, monkeypatch, case):
+    """``--sketch-mode device`` exits 0 with the JAX package's files: on the
+    default backend sent to the CPU (the CLI has no device option), and with
+    ``--backend numpy`` with no GPU at all (its sketches run on the CPU)."""
+    tar, neg, want = jax_sketch_runs
+    want = want['jax_sketch_seed' if case == 'device_seed_pattern' else 'jax_sketch']
+    if case != 'device_numpy':
+        to_cpu = cli.config_from_args
+        monkeypatch.setattr(cli, 'config_from_args',
+                            lambda args: dataclasses.replace(to_cpu(args), device='cpu'))
+    rc = cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
+                   '--title', 'port', '--no-mash', '--no-blast', '-p', '1', '-k', '15', '-w', '20',
+                   '--min-len', '60', *SKETCH_OPTIONS[case]])
+    assert rc == 0
+    for name in FILES:
+        assert (tmp_path / 'port' / name).read_bytes() == (want / name).read_bytes(), name
+
+
+def test_cli_sketch_mode_device_without_gpu_exits_nonzero(tmp_path, jax_sketch_runs, capsys):
+    """On the default backend the device sketches need the GPU: without one
+    the CLI stops with the CUDA error and writes nothing."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    tar, neg, _ = jax_sketch_runs
+    rc = cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
+                   '--title', 'port', '--no-mash', '--no-blast', '--sketch-mode', 'device'])
+    assert rc == 1
+    assert 'CUDA' in capsys.readouterr().err
+    assert not (tmp_path / 'port').exists()

@@ -400,11 +400,20 @@ def test_merge_graph_parts_matches_jax(arrays_case):
     assert D.merge_graph_parts(parts[:1]) is parts[0]
 
 
-def test_multihost_raises(fastas, monkeypatch):
+@pytest.mark.parametrize('env', ['', '1', '127.0.0.1:1,1,0'])
+def test_multihost_env_single_process_matches(fastas, single_build, monkeypatch, env):
+    """``SEQWIN_TPU_MULTIHOST`` in one process (no group, or a group of one)
+    takes the multi-host build over ``devices`` CPU shards: the single
+    build's arrays."""
     paths, targets = fastas
-    monkeypatch.setenv('SEQWIN_TPU_MULTIHOST', '')
-    with pytest.raises(NotImplementedError, match='A13'):
-        build_deferred(paths, K, W, targets, devices=4, device='cpu')
+    monkeypatch.setenv('SEQWIN_TPU_MULTIHOST', env)
+    graph, offsets, ids = build_deferred(paths, K, W, targets, devices=4, device='cpu')
+    kmers, edges = graph.materialize()
+    for a, b in zip((kmers, graph.nodes, edges, offsets), single_build[:4]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert ids == single_build[4] and graph.n_chunks == 4
+    assert not torch.distributed.is_initialized()
 
 
 def test_devices_map_to_cards(monkeypatch):
