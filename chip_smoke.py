@@ -27,16 +27,20 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    against the package's CPU build, then the multi-device build over D
    against the GPU build, all five outputs byte-equal, with B2 and B3
    launched once per shard holding bases and B1 not at all. Then the
-   multi-device pre-pass and build step run again under torch's sync debug
-   mode 'error': any call in them that waits on the device fails the phase.
+   multi-device pre-pass and build step, and the single-device build's
+   deferred dispatch of every chunk (at a 2^21-base budget, up to the
+   batched count fetch), run again under torch's sync debug mode 'error':
+   any call in them that waits on the device fails the phase.
 4. The main path at a real size: 64 genomes x 3 Mbp (192 Mbp), k=21,
-   w=200, through `build_deferred` and through `build_distributed` over D,
-   each followed by the host penalty threshold the pipeline uses without
-   mash, `filter_edges` and `compact_kmers`; output invariants and
-   per-kernel launch counts are checked for each run, and the two runs'
-   nodes and edges must be equal. ``--profile`` traces one more run of each
-   with torch.profiler and prints the device-time table and the package's
-   host spans.
+   w=200, through `build_deferred` (the deferred, threaded chunk dispatch)
+   and through `build_distributed` over D, each followed by the host
+   penalty threshold the pipeline uses without mash, `filter_edges` and
+   `compact_kmers`; output invariants and per-kernel launch counts are
+   checked for each run, and the two runs' nodes and edges must be equal.
+   One more single-device build runs with ``SEQWIN_TPU_TORCH_TIMELINE=1``
+   and prints its prep, dispatch and fetch gaps. ``--profile`` traces one
+   more run of each with torch.profiler and prints the device-time table
+   and the package's host spans.
 5. The whole pipeline on the card. Reduced: `python -m seqwin_tpu_torch
    --no-mash --no-blast -p 8` in a subprocess on the golden171 proxy cut to
    24 genomes x 1 Mbp (10 targets), its signatures.fasta, signatures.csv
@@ -45,9 +49,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Full scale: the proxy at 72 + 99 genomes x 4.7 Mbp (~804 Mbp),
    `cli.main` in this process twice with -p 8 (forked marker workers under
    a live CUDA context); at least one signature, kernel B1 launched once
-   per 2^25-base chunk and B2/B3 never, both runs byte-equal; wall time and
-   the per-phase `Finished in` seconds of each run. ``--profile`` traces the
-   second run through `Config.profile_dir` and prints its device busy.
+   per 2^25-base chunk and B2/B3 never, both runs byte-equal; wall time,
+   the per-phase `Finished in` seconds and the peak device memory of each
+   run, and the timeline gaps of the second (``SEQWIN_TPU_TORCH_TIMELINE=1``).
+   ``--profile`` traces the second run through `Config.profile_dir` and
+   prints its device busy.
 6. Long records, low memory, the host backend and the sort engine on the
    card. (1) The golden171 proxy with each genome as ONE record (72 + 99
    complete genomes x 4.7 Mbp, ~804 Mbp, every record above the 2^22-base
@@ -90,6 +96,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    byte-equal to the single-process runs. Seconds and launches per
    process; ``--profile`` traces one more build in each (device busy, host
    spans).
+9. The fused one-program build (``SEQWIN_TPU_TORCH_FUSED=1``,
+   `engine/fused.py`). (1) Phase 3's data and phase 4's 192 Mbp through
+   `graph.build`, byte-equal to the per-chunk build, B1 once per launch
+   group; at 192 Mbp both timed in turns (per-chunk, fused, fused,
+   per-chunk). (2) B1 on the fused 192 Mbp stream (every record end to
+   end) against `phase1_z_plain`, exact, both timed with CUDA events. (3)
+   The 804 Mbp proxy CLI (phase 5's data and options) with the variable
+   set: its files byte-equal to phase 5's run, wall time, `Finished in`
+   seconds and peak device memory; B1 on that fused stream (~2^29.6
+   positions) exact against B1 on each of its chunks, rebased, and timed.
+   (4) Phase 3's data at a 2^18-base budget, below its largest record:
+   the fused build falls back to the per-chunk path (counted) and is
+   byte-equal to it.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -517,6 +536,301 @@ def check_no_sync(paths, devices):
         "mode 'error' without a sync; step counts agree with the pre-pass")
 
 
+def check_no_sync_deferred(paths, budget: int = 1 << 21):
+    """The single-device build's deferred dispatch (`hybrid.scan_chunk_deferred`)
+    of every chunk of ``paths`` at ``budget`` enqueues without a host sync,
+    up to the batched count fetch: the dispatches run under sync debug mode
+    'error' after the host prep (`hybrid.pinned_host_prep`); the fetched
+    counts and trimmed streams equal the synchronous `scan_chunk_device`."""
+    import torch
+
+    from seqwin_tpu_torch.engine import hybrid
+    from seqwin_tpu_torch.graph.build import _group_chunks
+
+    dev = torch.device('cuda')
+    records, offsets = parse_records(paths)
+    chunks, _ = _group_chunks([(None, records)], budget)
+    preps = [hybrid.pinned_host_prep(recs, K, W, base, offsets, dev) for recs, base in chunks]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        res = [hybrid.scan_chunk_deferred(p, K, W, base, dev)
+               for p, (_, base) in zip(preps, chunks)]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    counts = torch.stack([r[3] for r in res]).tolist()
+    for (recs, base), r, count in zip(chunks, res, counts):
+        want = hybrid.scan_chunk_device(recs, K, W, base, offsets, device=dev)
+        if count != want[3] or count > r[0].numel() or not all(
+                torch.equal(a[:count], b) for a, b in zip(r[:3] + r[4:], want[:3] + want[4:])):
+            raise AssertionError(f'deferred dispatch of the chunk at record {base} differs '
+                                 'from the synchronous scan')
+    log(f'[no-sync] single-device deferred dispatch of {len(chunks)} chunks (budget {budget}) '
+        "ran under sync debug mode 'error' without a sync; one batched count fetch; counts "
+        'and streams equal the synchronous scan')
+
+
+def timeline_gaps(events) -> dict:
+    """Gaps of one build's timeline (``SEQWIN_TPU_TORCH_TIMELINE=1``), ms:
+    per chunk, prep start to its dispatch (the prep, then the wait for the
+    main thread), and its dispatch (h2d submit to dispatched: the enqueue
+    of the h2d, B1, the patches, the emission and the streams); the main
+    thread between two dispatches; the last dispatch to the count fetch;
+    the fetch's wait (the card finishing what was queued); the fetch to
+    the node merge's end and on to the node columns' d2h; and the wall
+    from the first prep to that d2h."""
+    chunks, rest = {}, {}
+    for t, name, attrs in events:
+        if 'rec_base' in attrs:
+            chunks.setdefault(attrs['rec_base'], {})[name] = t
+        else:
+            rest[name] = t
+    order = sorted((c for c in chunks.values() if 'dispatched' in c),
+                   key=lambda c: c['h2d_submit'])
+
+    def ms(vals):
+        vals = [v * 1e3 for v in vals]
+        return dict(sum=sum(vals), max=max(vals, default=0.0), n=len(vals),
+                    max_at=int(np.argmax(vals)) if vals else None)
+
+    first = order[0]['prep_start']
+    return dict(
+        chunks=len(order),
+        prep_to_dispatch_ms=ms(c['h2d_submit'] - c['prep_start'] for c in order),
+        dispatch_ms=ms(c['dispatched'] - c['h2d_submit'] for c in order),
+        between_dispatches_ms=ms(b['h2d_submit'] - a['dispatched']
+                                 for a, b in zip(order, order[1:])),
+        first_prep_to_first_dispatch_ms=(order[0]['h2d_submit'] - first) * 1e3,
+        first_prep_to_last_dispatch_ms=(order[-1]['dispatched'] - first) * 1e3,
+        last_dispatch_to_fetch_ms=(rest['counts_fetch_start'] - order[-1]['dispatched']) * 1e3,
+        fetch_wait_ms=(rest['counts_fetched'] - rest['counts_fetch_start']) * 1e3,
+        fetch_to_merge_nodes_ms=(rest['agg_merge_nodes_done'] - rest['counts_fetched']) * 1e3,
+        merge_nodes_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - rest['agg_merge_nodes_done']) * 1e3,
+        first_prep_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - first) * 1e3)
+
+
+def timeline_run(fn):
+    """``fn()`` with ``SEQWIN_TPU_TORCH_TIMELINE=1`` (a build reads it when
+    it starts): (its result, `timeline_gaps` of its events)."""
+    from seqwin_tpu_torch.engine import timeline
+
+    os.environ['SEQWIN_TPU_TORCH_TIMELINE'] = '1'
+    timeline.reset()
+    try:
+        out = fn()
+        events = timeline.drain()
+    finally:
+        del os.environ['SEQWIN_TPU_TORCH_TIMELINE']
+        timeline.reset()
+    return out, timeline_gaps(events)
+
+
+class fused_build:
+    """``SEQWIN_TPU_TORCH_FUSED=1`` inside the block (a build reads it when
+    it starts)."""
+
+    def __enter__(self):
+        os.environ['SEQWIN_TPU_TORCH_FUSED'] = '1'
+
+    def __exit__(self, *exc):
+        del os.environ['SEQWIN_TPU_TORCH_FUSED']
+
+
+def expected_groups(records, budget: int) -> int:
+    """B1 launches of the fused build of ``records``: its launch groups of
+    whole chunks at ``budget``."""
+    from seqwin_tpu_torch.engine.fused import _launch_groups
+    from seqwin_tpu_torch.graph.build import _group_chunks
+
+    chunks, _ = _group_chunks([(None, records)], budget)
+    sizes = [sum(len(c) for c in recs) for recs, _ in chunks]
+    return len(_launch_groups(np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])))
+
+
+def phase_fused_small(paths, targets, per_chunk) -> dict:
+    """Phase 9 (1) on phase 3's data and (4): the fused build byte-equal to
+    the per-chunk build ``per_chunk``, B1 once per launch group; at a
+    2^18-base budget (below the largest record) it falls back, counted,
+    and equals the per-chunk build at that budget, B1 once per chunk and
+    block of the per-chunk plan."""
+    import torch
+
+    from seqwin_tpu_torch.graph import build
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, counters
+
+    t_phase = time.perf_counter()
+    records, _ = parse_records(paths)
+    out = {}
+    for label, budget in (('fused', None), ('oversized_fallback', 1 << 18)):
+        if budget:
+            os.environ['SEQWIN_TPU_TORCH_CHUNK_BASES'] = str(budget)
+        try:
+            want = per_chunk if budget is None else build(paths, K, W, targets, n_cpu=8)
+            counters['fused_fallbacks'] = 0
+            reset_launches()
+            t0 = time.perf_counter()
+            with fused_build():
+                got = build(paths, K, W, targets, n_cpu=8)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            os.environ.pop('SEQWIN_TPU_TORCH_CHUNK_BASES', None)
+        _assert_same_build(f'fused ({label}) vs per-chunk build, 8 x 1 Mbp', got, want)
+        b1 = (expected_groups(records, DEFAULT_CHUNK_BASES) if budget is None
+              else expected_scans(records, budget))
+        if launches != {'phase1_z': b1, 'phase1_zc': 0, 'phase1_pfx': 0}:
+            raise AssertionError(f'fused ({label}) launches {launches}, expected B1 = {b1}')
+        if counters['fused_fallbacks'] != (budget is not None):
+            raise AssertionError(f"fused ({label}): {counters['fused_fallbacks']} fallbacks")
+        out[label] = dict(secs=secs, launches=launches, fallbacks=counters['fused_fallbacks'])
+        log(f'[phase9 fused] 8 x 1 Mbp{f" at budget {budget}" if budget else ""}: '
+            f'SEQWIN_TPU_TORCH_FUSED=1 byte-equal to the per-chunk build in {secs:.2f} s; '
+            f"launches {launches}; fallbacks {counters['fused_fallbacks']}")
+    out['phase_s'] = time.perf_counter() - t_phase
+    return out
+
+
+def b1_bound(n: int, int_ops_per_s: float) -> tuple[float, str]:
+    """(ms, what bounds it) of B1 over n positions: 5 bytes per position at
+    the memory rate, or its least 32-bit instruction count at the integer
+    rate, whichever takes longer."""
+    bytes_s = 5 * n / HBM_BYTES_PER_S
+    ops_s = OPS_PER_POS['phase1_z'] * n / int_ops_per_s
+    return max(bytes_s, ops_s) * 1e3, 'bytes' if bytes_s >= ops_s else 'operations'
+
+
+def phase_fused_main(paths, targets, single, card: str) -> dict:
+    """Phase 9 (1) at 192 Mbp and (2): the fused `graph.build` byte-equal to
+    the per-chunk build ``single``, B1 once per launch group, both timed in
+    turns; then B1 on the fused stream (every record end to end) against
+    `phase1_z_plain`, exact, both timed with CUDA events."""
+    import torch
+
+    from seqwin_tpu_torch.engine import phase1
+    from seqwin_tpu_torch.graph import build
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
+
+    records, _ = parse_records(paths)
+    groups = expected_groups(records, DEFAULT_CHUNK_BASES)
+    secs = {'per_chunk': [], 'fused': []}
+    launches = None
+    for label in ('per_chunk', 'fused', 'fused', 'per_chunk'):
+        reset_launches()
+        t0 = time.perf_counter()
+        if label == 'fused':
+            with fused_build():
+                got = build(paths, K, W, targets, n_cpu=8)
+        else:
+            got = build(paths, K, W, targets, n_cpu=8)
+        torch.cuda.synchronize()
+        secs[label].append(time.perf_counter() - t0)
+        _assert_same_build(f'192 Mbp {label} vs the single-device build', got, single)
+        del got
+        if label == 'fused':
+            launches = read_launches()
+            if launches != {'phase1_z': groups, 'phase1_zc': 0, 'phase1_pfx': 0}:
+                raise AssertionError(f'192 Mbp fused launches {launches}, expected B1 = {groups}')
+    log(f"[phase9 fused] 192 Mbp graph.build: fused byte-equal to per-chunk; seconds in turns "
+        f"per-chunk {secs['per_chunk'][0]:.3f}, fused {secs['fused'][0]:.3f}, "
+        f"{secs['fused'][1]:.3f}, per-chunk {secs['per_chunk'][1]:.3f}; fused launches "
+        f'{launches} ({groups} launch group); on {card}')
+
+    stream = torch.from_numpy(aug_stream(records)).to('cuda')
+    del records
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, want = phase1.phase1_z(stream, K, W), phase1.phase1_z_plain(stream, K, W)
+    torch.cuda.synchronize()
+    bad, err = _compare((got,), (want,))
+    plain_peak = torch.cuda.max_memory_allocated()
+    del got, want
+    if bad:
+        raise AssertionError(f'B1 on the fused 192 Mbp stream: {bad} mismatches')
+    hz, _ = sm_clock_hz()
+    n = stream.numel()
+    bound, bound_by = b1_bound(n, INT32_PER_SM_CLOCK * SMS * hz)
+    ms = cuda_ms(lambda: phase1.phase1_z(stream, K, W), iters=10)
+    plain_ms = cuda_ms(lambda: phase1.phase1_z_plain(stream, K, W), iters=1, warmup=1)
+    del stream
+    torch.cuda.empty_cache()
+    log(f'[phase9 fused] B1 on the fused 192 Mbp stream, n={n} (2^{np.log2(n):.2f}): '
+        f'mismatches=0 against phase1_z_plain; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms '
+        f'(peak {plain_peak / 2**30:.1f} GiB), bound {bound:.4f} ms set by {bound_by}; on {card}')
+    return dict(secs=secs, launches=launches, groups=groups, n=n, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, max_abs_err=float(err))
+
+
+def phase_fused_pipeline(td: Path, pipe: dict, card: str) -> dict:
+    """Phase 9 (3) on phase 5's 804 Mbp proxy in ``td``: `cli.main` with
+    ``SEQWIN_TPU_TORCH_FUSED=1``, its files byte-equal to phase 5's ``e2e``
+    run, B1 once per launch group, wall, `Finished in` seconds and peak
+    device memory; then B1 on the fused stream exact against B1 on each
+    of its chunks (rebased), and timed."""
+    import torch
+
+    from seqwin_tpu_torch import cli
+    from seqwin_tpu_torch.engine import phase1
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, _group_chunks
+
+    lists = pipe['lists']
+    records, _ = parse_records(list_paths(lists))
+    groups = expected_groups(records, DEFAULT_CHUNK_BASES)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with fused_build():
+        rc = cli.main(['--tar-paths', str(lists['tar_paths']), '--neg-paths',
+                       str(lists['neg_paths']), '--prefix', str(td), '--title', 'e2e_fused',
+                       '--no-mash', '--no-blast', '-p', '8'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f'cli.main with SEQWIN_TPU_TORCH_FUSED=1 exited {rc}')
+    differ = _differing(td / 'e2e', td / 'e2e_fused', FILES)
+    if differ:
+        raise AssertionError(f'804 Mbp fused CLI and the per-chunk run differ in {differ}')
+    if launches != {'phase1_z': groups, 'phase1_zc': 0, 'phase1_pfx': 0}:
+        raise AssertionError(f'804 Mbp fused CLI launches {launches}, expected B1 = {groups}')
+    res = dict(wall_s=wall, phases_s=log_phases(td / 'e2e_fused' / 'seqwin.log'),
+               peak_bytes=peak, launches=launches, groups=groups)
+    log(f"[phase9 fused] {PROXY[0]} + {PROXY[1]} x {PROXY[2]} bp, cli.main -p 8 with "
+        f"SEQWIN_TPU_TORCH_FUSED=1: byte-equal to phase 5's run ({', '.join(FILES)}); {wall:.2f} s "
+        f"wall; phases (s) {json.dumps(res['phases_s'])}; peak device memory "
+        f"{peak / 2**30:.2f} GiB (per-chunk runs: "
+        + ', '.join(f"{r['peak_bytes'] / 2**30:.2f}" for r in pipe['runs'])
+        + f' GiB); launches {launches}; on {card}')
+
+    chunks, _ = _group_chunks([(None, records)], DEFAULT_CHUNK_BASES)
+    stream = torch.from_numpy(aug_stream(records)).to('cuda')
+    del records
+    n = stream.numel()
+    z = phase1.phase1_z(stream, K, W)
+    bad, o = 0, 0
+    for recs, _ in chunks:
+        size = sum(len(c) for c in recs)
+        zc = phase1.phase1_z(stream[o:o + size], K, W)
+        bad += int((z[o:o + size] != torch.where(zc >= 0, zc + o, -1)).sum())
+        o += size
+    del z
+    if bad or o != n:
+        raise AssertionError(f'B1 on the fused 804 Mbp stream: {bad} mismatches against its chunks')
+    hz, _ = sm_clock_hz()
+    bound, bound_by = b1_bound(n, INT32_PER_SM_CLOCK * SMS * hz)
+    ms = cuda_ms(lambda: phase1.phase1_z(stream, K, W), iters=5)
+    del stream
+    torch.cuda.empty_cache()
+    res.update(n=n, ms=ms, bound_ms=bound, bound_by=bound_by)
+    log(f'[phase9 fused] B1 on the fused 804 Mbp stream, n={n} (2^{np.log2(n):.2f}): '
+        f'mismatches=0 against B1 on its {len(chunks)} chunks (rebased); kernel {ms:.4f} ms, '
+        f'plain not run (its int64 temporaries would pass the card memory), bound {bound:.4f} ms '
+        f'set by {bound_by}; on {card}')
+    return res
+
+
 def phase_small(seed: int, devices):
     """8 x 1 Mbp (3 records each, N runs, one empty record): the GPU build
     against the CPU build, and the multi-device build over ``devices``
@@ -542,6 +856,8 @@ def phase_small(seed: int, devices):
         t_multi = time.perf_counter() - t0
         grew = {k: v - before[k] for k, v in read_launches().items()}
         check_no_sync(paths, devices)
+        check_no_sync_deferred(paths)
+        fused = phase_fused_small(paths, targets, gpu)
     _assert_same_build('GPU build vs CPU build', gpu, cpu)
     log(f'[cpu-vs-gpu] 8 x 1 Mbp: byte-equal kmers={len(gpu[0])} nodes={len(gpu[1])} '
         f'edges={len(gpu[2])} (gpu {t_gpu:.2f} s, cpu {t_cpu:.2f} s)')
@@ -559,6 +875,7 @@ def phase_small(seed: int, devices):
     log(f'[multi-vs-single] 8 x 1 Mbp over {len(devices)} shards {[str(d) for d in devices]}: '
         f'byte-equal to the single-device build; launches {grew} '
         f'({graph.n_chunks} shards with bases) in {t_multi:.2f} s')
+    return fused
 
 
 def sort_engine_build(paths, targets):
@@ -694,6 +1011,7 @@ def phase_main(paths, targets, profile: bool, card: str, devices, td: Path) -> d
     just after."""
     from seqwin_tpu_torch import Config
     from seqwin_tpu_torch.graph import build_deferred
+    from seqwin_tpu_torch.graph.build import counters
     from seqwin_tpu_torch.parallel import build_distributed
 
     config = Config(**write_lists(td, paths, targets), prefix=td, run_mash=False, run_blast=False)
@@ -749,7 +1067,38 @@ def phase_main(paths, targets, profile: bool, card: str, devices, td: Path) -> d
         raise AssertionError('multi-device 192 Mbp main path differs from the single-device one')
     log('[main] multi-device nodes, edges, filtered edges and kept k-mers equal the '
         'single-device run')
+    counters['overflow_reruns'] = 0
+    run, gaps = timeline_run(lambda: main_path(single, paths, targets, config))
+    if not np.array_equal(run['nodes'], s_run['nodes']):
+        raise AssertionError('192 Mbp build with the timeline on differs')
+    out['single']['timeline'] = dict(secs=run['secs'], build_s=run['build_s'], gaps=gaps)
+    log(f"[timeline] 192 Mbp single-device build_deferred with SEQWIN_TPU_TORCH_TIMELINE=1: "
+        f"build {run['build_s']:.3f} s; overflow re-runs {counters['overflow_reruns']}; gaps "
+        f"{json.dumps(gaps)}")
+    prep = serial_prep_ms(paths, devices[0])
+    out['single']['serial_prep_ms'] = prep
+    log(f"[timeline] 192 Mbp host prep of the same chunks in series on the main thread "
+        f"(`hybrid.pinned_host_prep`, host clock; torch.profiler does not see the prep pool's "
+        f"threads): {json.dumps(prep)}; the threaded build ran from the first prep to the last "
+        f"dispatch in {gaps['first_prep_to_last_dispatch_ms']:.1f} ms; on {card}")
     return out
+
+
+def serial_prep_ms(paths, dev) -> dict:
+    """Host ms of `hybrid.pinned_host_prep` for ``dev`` of each chunk of
+    ``paths`` at the default budget, one after another on this thread: the
+    prep work the build's pool spreads over its threads."""
+    from seqwin_tpu_torch.engine import hybrid
+    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, _group_chunks
+
+    records, offsets = parse_records(paths)
+    chunks, _ = _group_chunks([(None, records)], DEFAULT_CHUNK_BASES)
+    times = []
+    for recs, base in chunks:
+        t0 = time.perf_counter()
+        hybrid.pinned_host_prep(recs, K, W, base, offsets, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(sum=sum(times), max=max(times), n=len(times))
 
 
 def proxy_data(td: Path, n_tar: int, n_neg: int, genome_len: int, seed: int,
@@ -909,6 +1258,7 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
     import torch
 
     from seqwin_tpu_torch import cli, core
+    from seqwin_tpu_torch.graph.build import counters
 
     n_tar, n_neg, genome_len = PROXY
     t0 = time.perf_counter()
@@ -921,16 +1271,23 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
         argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
                 '--prefix', str(td), '--title', title, '--no-mash', '--no-blast', '-p', '8']
         prof_dir = td / 'profile' if profile and title == 'e2e' else None
-        reset_launches()
-        t0 = time.perf_counter()
-        if prof_dir is None:
-            rc = cli.main(argv)
-        else:
+
+        def call():
+            if prof_dir is None:
+                return cli.main(argv)
             args = cli.build_parser().parse_args(argv)
             core.run(dataclasses.replace(cli.config_from_args(args), profile_dir=prof_dir))
-            rc = 0
+            return 0
+
+        torch.cuda.reset_peak_memory_stats()
+        counters['overflow_reruns'] = 0
+        reset_launches()
+        t0 = time.perf_counter()
+        # the second run records the build's timeline
+        rc, gaps = timeline_run(call) if title == 'e2e' else (call(), None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         launches = read_launches()
         if rc != 0:
             raise AssertionError(f'cli.main exited {rc} ({title})')
@@ -944,7 +1301,9 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
             raise AssertionError('profiled pipeline run: no trace or no device-busy line')
         runs.append(dict(title=title, wall_s=wall, phases_s=log_phases(out_dir / 'seqwin.log'),
                          launches=launches, device_busy_ms=float(busy.group(1)) if busy else None,
-                         n_signatures=(out_dir / 'signatures.fasta').read_bytes().count(b'>')))
+                         n_signatures=(out_dir / 'signatures.fasta').read_bytes().count(b'>'),
+                         peak_bytes=peak, timeline=gaps,
+                         overflow_reruns=counters['overflow_reruns']))
     differ = _differing(td / 'e2e_first', td / 'e2e', FILES)
     if differ:
         raise AssertionError(f'full-scale pipeline: the two runs differ in {differ}')
@@ -953,10 +1312,14 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
     for r in runs:
         log(f"[pipeline] {n_tar} + {n_neg} x {genome_len} bp, cli.main -p 8 ({r['title']}): "
             f"{r['wall_s']:.2f} s wall; phases (s) {json.dumps(r['phases_s'])}; "
-            f"{r['n_signatures']} signatures; launches {r['launches']} ({chunks} chunks)"
+            f"{r['n_signatures']} signatures; launches {r['launches']} ({chunks} chunks, "
+            f"{r['overflow_reruns']} overflow re-runs); peak "
+            f"device memory {r['peak_bytes'] / 2**30:.2f} GiB"
             + (f"; device busy {r['device_busy_ms']:.3f} ms (torch.profiler)"
                if r['device_busy_ms'] is not None else '') + f'; on {card}')
     log('[pipeline] both runs byte-equal: signatures.fasta, signatures.csv, assemblies.csv')
+    log(f"[timeline] 804 Mbp cli.main (e2e) with SEQWIN_TPU_TORCH_TIMELINE=1: gaps "
+        f"{json.dumps(runs[-1]['timeline'])}")
     return dict(chunks=chunks, launches=runs[0]['launches'], runs=runs, lists=lists)
 
 
@@ -1505,11 +1868,14 @@ def main() -> int:
         td = Path(td)
         paths, targets = main_data(td, args.seed)
         kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
-        phase_small(args.seed, devices)
+        fused_small = phase_small(args.seed, devices)
         main_res = phase_main(paths, targets, args.profile, card, devices, td)
         t0 = time.perf_counter()
         single = build(paths, K, W, targets, n_cpu=8)
         single_s = time.perf_counter() - t0
+        t9 = time.perf_counter()
+        fused_main = phase_fused_main(paths, targets, single, card)
+        phase9_s = fused_small['phase_s'] + time.perf_counter() - t9
         multi_low = phase_multi_low_memory(paths, targets, devices, single)
         reduced = td / 'reduced'
         reduced.mkdir()
@@ -1521,6 +1887,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         pipe = phase_pipeline_full(args.seed, args.profile, card, Path(td))
         sketch_full = phase_sketch_full(Path(td), pipe, card, args.profile)
+        t9 = time.perf_counter()
+        fused_pipe = phase_fused_pipeline(Path(td), pipe, card)
+        phase9_s += time.perf_counter() - t9
+    log(f'[phase9 fused] phase 9 took {phase9_s:.1f} s of command time in all')
     low = phase_low_memory_cli(args.seed, args.profile, card)
     long_rec = phase_long_record(args.seed, devices, card)
     for kern in kernels:
@@ -1542,6 +1912,16 @@ def main() -> int:
             f'rank{r}_{label}': multi_host[f'rank{r}'][run]['launches'][kname]
             for r in range(2) for label, run in (('build', 'plain'), ('build_low_memory', 'low_memory'),
                                                  ('cli', 'gpu'), ('cli_sketch_device', 'gpu_sketch'))}
+        kern['phase9_launches'] = {
+            'fused_8mbp': fused_small['fused']['launches'][kname],
+            'fused_oversized_fallback_8mbp': fused_small['oversized_fallback']['launches'][kname],
+            'fused_192mbp': fused_main['launches'][kname],
+            'fused_cli_804mbp': fused_pipe['launches'][kname]}
+        if kname == 'phase1_z':
+            kern['fused_streams'] = {
+                label: {key: r[key] for key in ('n', 'ms', 'bound_ms', 'bound_by')}
+                | ({'plain_ms': r['plain_ms']} if 'plain_ms' in r else {})
+                for label, r in (('192mbp', fused_main), ('804mbp', fused_pipe))}
     log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {

@@ -4,7 +4,8 @@ Counterpart: `seqwin_tpu/engine/aggregate.py` (`_compact_chunks`,
 `_merge_nodes`, `_merge_edges` hash-key route, `_extract_ascending`,
 `parallel/distributed.py::_reduce_edges`, the
 edge filter and k-mer compaction gathers, `DeviceGraph`, `HostGraph`,
-`aggregate_device`, `aggregate`). Output contract:
+`aggregate_device`, `aggregate`; the timeline marks
+``agg_merge_nodes_done`` and ``agg_kn_d2h_done``). Output contract:
 
 - nodes sorted by unsigned hash; k-mers grouped per node in global
   (assembly, record, pos) scan order (a stable sort of the scan-ordered
@@ -25,6 +26,7 @@ import torch
 from ..device import resolve_device
 from ..graph.dtypes import EDGE_DTYPE, KMER_DTYPE, NODE_DTYPE
 from ..ops import u64
+from . import timeline
 
 
 def _extract_ascending(flags: torch.Tensor) -> torch.Tensor:
@@ -239,6 +241,9 @@ def aggregate_device(chunks, is_target: np.ndarray, defer: bool = False):
         is_target: bool[A].
         defer: return a `DeviceGraph` (nodes on host, kmers/edges on the
             device) instead of the (kmers, nodes, edges) tuple.
+
+    The chunk streams may be views of longer buffers (the deferred scan's
+    emission slots, trimmed); the concatenation copies what they hold.
     """
     n_chunks = sum(c[0] is not None for c in chunks)
     chunks = [c for c in chunks if c[0] is not None and c[3] > 0]
@@ -249,14 +254,17 @@ def aggregate_device(chunks, is_target: np.ndarray, defer: bool = False):
     tmask = torch.from_numpy(np.asarray(is_target, dtype=bool)).to(oh.device)
     s_pos, s_rec, node_hash, n_starts, n_stops, n_tar, n_neg = _merge_nodes(
         oh, pos, rec, asm, tmask)
+    timeline.mark('agg_merge_nodes_done')
     nodes = _nodes_host(node_hash, n_starts, n_stops, n_tar, n_neg)
+    # the deferred graph ships the node columns only; the k-mers stay
+    kmers = None if defer else _kmers_host(s_pos, s_rec)
+    timeline.mark('agg_kn_d2h_done', bytes=nodes.nbytes + (0 if defer else kmers.nbytes))
     e_first, e_second, e_weight = _merge_edges(oh, rec, asm)
     graph = DeviceGraph(nodes, s_pos, s_rec, n_starts, n_stops,
                         e_first, e_second, e_weight, n_chunks=n_chunks)
     if defer:
         return graph
-    kmers, edges = graph.materialize()
-    return kmers, nodes, edges
+    return kmers, nodes, graph.materialize_edges()
 
 
 def aggregate(oh: np.ndarray, pos: np.ndarray, rec: np.ndarray, asm: np.ndarray,

@@ -6,9 +6,9 @@ Counterpart: `seqwin_tpu/engine/hybrid.py`. The host prep is copied as-is
 `_irregular_positions`, `host_patches`, `_asm_table`); `_record_block_plan`
 gives the same plan from sparse ranks; the device side (`_emission`,
 `_canon_at_emitted`, `scan_chunk_device`, `_block_adjust`,
-`scan_record_blocks`) is ported to torch. A record longer than the chunk
-budget is scanned in halo'd blocks, one kernel B1 launch each
-(`scan_blocks`).
+`scan_record_blocks`, `scan_records_hybrid`) is ported to torch. A record
+longer than the chunk budget is scanned in halo'd blocks, one kernel B1
+launch each (`scan_blocks`).
 
 - A window ending at valid k-mer position ``p`` whose last ``w`` positions are
   all valid k-mers of one record is clean: its argmin runs directly in
@@ -24,11 +24,19 @@ budget is scanned in halo'd blocks, one kernel B1 launch each
 The port sizes each chunk's stream to the chunk itself and ships the
 augmented byte stream (bit 6 = record start) as it is.
 
-Two extractions, chosen by path: the single-device build takes the exact
-mask extraction (`scan_chunk_device`); the multi-device build, which knows
-every shard's exact counts from its pre-pass, takes the pfx extraction
-(`scan_phase2_pfx` over kernel B3's tile staircases, counterpart of the JAX
-`scan_phase2_pfx`), which needs no host sync to size its outputs.
+Three extractions, chosen by path. The single-device build's chunks take
+the deferred one (`scan_chunk_deferred`, the JAX ``defer_sync=True``): the
+host half (`pinned_host_prep`) runs in a thread pool, and the dispatch half
+copies from page-locked memory without blocking, launches B1, patches, and
+fills ``emit_capacity`` slots with the emitted positions (a cumulative sum
+and a binary search per slot), returning the count as a device scalar; the
+caller fetches every chunk's count at once and re-runs a chunk that
+overflowed with the exact, synchronous `scan_chunk_device` (the mask
+extraction, which long-record blocks also take). The multi-device build,
+which knows every shard's exact counts from its pre-pass, takes the pfx
+extraction (`scan_phase2_pfx` over kernel B3's tile staircases,
+counterpart of the JAX `scan_phase2_pfx`), which needs no host sync to
+size its outputs.
 """
 from __future__ import annotations
 
@@ -39,12 +47,17 @@ from torch.profiler import record_function
 from ..device import resolve_device
 from ..ops import u64
 from ..ops.hashing import MULTISHIFT, out_hash_mult
+from . import timeline
 from .phase1 import _shift_right, pfx_from_z, phase1_z, rot_seed_tables  # noqa: F401
 
 
-def _host_layout(record_codes: list[np.ndarray], n: int, offset: int = 0):
-    """Concatenate records at ``offset``; per-base codes + record-start offsets."""
-    codes = np.full(n, 255, dtype=np.uint8)
+def _host_layout(record_codes: list[np.ndarray], n: int, offset: int = 0,
+                 out: np.ndarray | None = None):
+    """Concatenate records at ``offset``; per-base codes + record-start
+    offsets. ``out`` (uint8[n]) receives the codes instead of a new array."""
+    codes = np.full(n, 255, dtype=np.uint8) if out is None else out
+    if out is not None:
+        codes.fill(255)
     starts = np.zeros(len(record_codes), dtype=np.int64)
     off = offset
     for ri, c in enumerate(record_codes):
@@ -336,8 +349,10 @@ def _canon_at_emitted(codes_aug: torch.Tensor, eidx: torch.Tensor, k: int) -> to
     fwd_t, rev_t = rot_seed_tables(k, dev)
     f = torch.zeros(eidx.shape, dtype=torch.int64, device=dev)
     r = torch.zeros_like(f)
+    last = codes_aug.numel() - 1
     for j in range(k):
-        c = (codes_aug[eidx + j] & 3).long()
+        # a no-op for emitted positions; keeps padding slots in the stream
+        c = (codes_aug[(eidx + j).clamp_(max=last)] & 3).long()
         f ^= fwd_t[j][c]
         r ^= rev_t[j][c]
     return f + r
@@ -350,13 +365,14 @@ def out_hash(canon: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def chunk_host_prep(record_codes: list[np.ndarray], k: int, w: int,
-                    rec_base: int = 0, record_offsets=None):
+                    rec_base: int = 0, record_offsets=None, out: np.ndarray | None = None):
     """Host prep of one stream of whole records: the augmented byte stream
-    (bit 6 = record start), record starts, the irregular-window patches and
-    the local record -> assembly table."""
+    (bit 6 = record start; written into ``out`` when given), record starts,
+    the irregular-window patches and the local record -> assembly table.
+    Pure numpy: chunks prep in parallel threads."""
     with record_function('hybrid.host_prep'):
         total = int(sum(len(c) for c in record_codes))
-        codes, starts = _host_layout(record_codes, total)
+        codes, starts = _host_layout(record_codes, total, out=out)
         # empty records share their start with the next record (or sit at total)
         codes[starts[starts < total]] |= 64
         irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes)
@@ -374,6 +390,66 @@ def _emitted_streams(codes_d, eidx, k: int, starts_d, rec_base: int, asm_tab_d):
     return e_oh, e_pos, rec_local + rec_base, asm_tab_d.long()[rec_local]
 
 
+def emit_capacity(n: int, w: int) -> int:
+    """Emission slots of a deferred chunk of ``n`` positions: 2.5 / (w + 1)
+    per position, 25% above the expected minimizer density 2 / (w + 1),
+    and at least 4096 (the JAX package's formula,
+    `seqwin_tpu/engine/hybrid.py:1008`, without its power of two)."""
+    return min(max(1 << 12, int(2.5 * n / (w + 1)) + 64), n)
+
+
+def _emission_capped(z: torch.Tensor, cap: int):
+    """The first ``cap`` emitted values of a (patched) z stream (`_emission`)
+    and the emitted count, without a host sync: (eidx int64[cap], count 0-d
+    int64). Slot j takes z where the running count of emissions first
+    reaches j + 1 (a binary search of the cumulative sum); slots past the
+    count hold ``z.numel()``, which `_emitted_streams` gathers safely."""
+    n = z.numel()
+    csum = torch.cumsum(_emission_mask(z), 0, dtype=torch.int32)
+    at = torch.searchsorted(csum, torch.arange(1, cap + 1, dtype=torch.int32, device=z.device))
+    eidx = torch.where(at < n, z[at.clamp(max=n - 1)].long(), n)
+    return eidx, csum[-1].long()
+
+
+def pinned_host_prep(record_codes: list[np.ndarray], k: int, w: int, rec_base: int,
+                     record_offsets, device: torch.device):
+    """The host half of a deferred chunk scan: `chunk_host_prep` as torch
+    tensors, in page-locked memory when ``device`` is a GPU (the source of
+    `scan_chunk_deferred`'s copies that do not block). The caller keeps
+    them until the chunk's count is fetched."""
+    total = int(sum(len(c) for c in record_codes))
+    timeline.mark('prep_start', rec_base=rec_base, bases=total)
+    pin = device.type == 'cuda'
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
+    _, *rest = chunk_host_prep(record_codes, k, w, rec_base, record_offsets, out=buf.numpy())
+    rest = [torch.from_numpy(a) for a in rest]
+    return (buf, *(t.pin_memory() for t in rest)) if pin else (buf, *rest)
+
+
+def scan_chunk_deferred(prep, k: int, w: int, rec_base: int, device):
+    """The dispatch half of a deferred chunk scan (counterpart of the JAX
+    ``scan_chunk_device(defer_sync=True)``): enqueue the h2d of the
+    `pinned_host_prep` tensors ``prep``, B1, the patches, the emission into
+    `emit_capacity` slots and the emitted streams, with no host sync.
+
+    Returns (e_oh, e_pos, e_rec, count, e_asm): streams of emit_capacity
+    entries, the first ``count`` of them real (when count <= the capacity),
+    and ``count`` the emitted count as a 0-d device tensor. A chunk whose
+    count exceeds its capacity is re-run with `scan_chunk_device`."""
+    codes_h, starts_h, irr_h, pz_h, asm_h = prep
+    dev = torch.device(device)
+    timeline.mark('h2d_submit', rec_base=rec_base, bytes=codes_h.numel())
+    codes_d, starts_d, irr_d, pz_d, asm_d = (t.to(dev, non_blocking=True) for t in prep)
+    timeline.mark('h2d_returned', rec_base=rec_base)
+    z = phase1_z(codes_d, k, w)
+    if irr_h.numel():
+        z[irr_d.long()] = pz_d
+    eidx, count = _emission_capped(z, emit_capacity(codes_h.numel(), w))
+    e_oh, e_pos, e_rec, e_asm = _emitted_streams(codes_d, eidx, k, starts_d, rec_base, asm_d)
+    timeline.mark('dispatched', rec_base=rec_base)
+    return e_oh, e_pos, e_rec, count, e_asm
+
+
 def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
                       rec_base: int = 0, record_offsets=None, device=None):
     """Scan one chunk on ``device``; emitted minimizers stay device-resident.
@@ -382,15 +458,20 @@ def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
     count int, e_asm int64), each of exactly ``count`` entries in stream
     order, or (None, None, None, 0, None) for an empty chunk. Record ids are
     global via ``rec_base``; ``e_asm`` is the per-entry assembly index when
-    ``record_offsets`` is given (else zeros).
+    ``record_offsets`` is given (else zeros). Syncs once, on the emission's
+    boolean index.
     """
     dev = resolve_device(device)
-    if sum(len(c) for c in record_codes) == 0:
+    total = int(sum(len(c) for c in record_codes))
+    if total == 0:
         return None, None, None, 0, None
+    timeline.mark('prep_start', rec_base=rec_base, bases=total)
     codes, starts, irr_pos, patch_z, asm_tab = chunk_host_prep(
         record_codes, k, w, rec_base, record_offsets)
 
+    timeline.mark('h2d_submit', rec_base=rec_base, bytes=codes.nbytes)
     codes_d = torch.from_numpy(codes).to(dev)
+    timeline.mark('h2d_returned', rec_base=rec_base)
     z = phase1_z(codes_d, k, w)
     if len(irr_pos):
         z[torch.from_numpy(irr_pos).to(dev).long()] = torch.from_numpy(patch_z).to(dev)
@@ -492,6 +573,20 @@ def scan_record_blocks(codes: np.ndarray, k: int, w: int, rec_idx: int, budget: 
     dev = resolve_device(device)
     return scan_blocks(codes, plan, k, w, rec_idx, record_offsets,
                        [dev] * (len(plan) if plan else 1))
+
+
+def scan_records_hybrid(record_codes: list[np.ndarray], k: int, w: int,
+                        device=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host wrapper of one `scan_chunk_device` over ``record_codes`` (records
+    0..): (oh uint64, pos uint32, rec int32) numpy arrays of the emitted
+    minimizers in scan order, the contract of `minimizer.scan_records_host`.
+    Counterpart of `seqwin_tpu/engine/hybrid.py::scan_records_hybrid`,
+    without its ``min_chunk`` (the port sizes a stream to its records)."""
+    e_oh, e_pos, e_rec, count, _ = scan_chunk_device(record_codes, k, w, 0, device=device)
+    if e_oh is None:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint32), np.zeros(0, np.int32)
+    return (u64.to_numpy(e_oh), e_pos.cpu().numpy().astype(np.uint32),
+            e_rec.cpu().numpy().astype(np.int32))
 
 
 def _bsearch_rows(flat, row, tgt, ts: int, side_left: bool):

@@ -1,18 +1,25 @@
 """End-to-end minimizer graph construction.
 
 Counterpart: `seqwin_tpu/graph/build.py` (`build`, `build_deferred`,
-`_build_impl`, `_build_numpy`, `kept_node_layout`, `filter_kmers`).
+`_build_impl`, `_group_chunks`, `_build_numpy`, `kept_node_layout`,
+`filter_kmers`).
 
     host FASTA ingest -> base-code streams
-      -> chunked scan on the device (`engine/hybrid.scan_chunk_device`)
+      -> chunked scan on the device (`engine/hybrid.scan_chunk_deferred`)
       -> stable sorts + run merges on the device (`engine/aggregate.py`)
       -> numpy arrays in the output contract.
 
 Records are packed into chunks of at most ``SEQWIN_TPU_TORCH_CHUNK_BASES``
 bases (default 2^25; ``LOW_MEMORY_CHUNK_BASES``, 2^22, with ``low_memory``),
-in global scan order, so the output is the same for any chunking. A record
-longer than the budget is scanned alone in halo'd blocks
-(`engine/hybrid.scan_record_blocks`). ``SEQWIN_TPU_TORCH_SCAN=sort`` scans
+in global scan order, so the output is the same for any chunking. Chunk
+host prep runs in a pool of min(4, n_cpu) threads; the main thread
+dispatches each chunk in chunk order without a host sync, fetches every
+chunk's emitted count at once after the last, and re-runs a chunk whose
+emission passed its capacity (`counters`). A record longer than the budget
+is scanned alone in halo'd blocks (`engine/hybrid.scan_record_blocks`,
+which syncs per block). ``SEQWIN_TPU_TORCH_FUSED=1`` takes the one-program
+build (`engine/fused.py`) over every chunk at once, or the per-chunk path
+when a record is above the budget. ``SEQWIN_TPU_TORCH_SCAN=sort`` scans
 the chunks with the plain torch sort engine (`engine/minimizer.py`) instead,
 which does not split records. ``devices != 1`` takes the multi-device build
 (`parallel/distributed.py`) over that many cards of this host, with the
@@ -25,6 +32,8 @@ from __future__ import annotations
 
 import logging
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterable
 
@@ -33,8 +42,11 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..engine import timeline
 from ..engine.aggregate import HostGraph, aggregate_device
-from ..engine.hybrid import scan_chunk_device, scan_record_blocks
+from ..engine.fused import build_fused
+from ..engine.hybrid import (pinned_host_prep, scan_chunk_deferred, scan_chunk_device,
+                             scan_record_blocks)
 from ..engine.minimizer import scan_chunk_sort
 from ..io.fasta import U32_MAX, iter_assemblies, parse_fasta_codes
 from ..parallel import multihost
@@ -46,6 +58,12 @@ logger = logging.getLogger(__name__)
 # Max bases per device scan call; read when a build starts.
 DEFAULT_CHUNK_BASES = 1 << 25
 LOW_MEMORY_CHUNK_BASES = 1 << 22
+
+# The builds' two documented second tries, counted since the process started
+# (or since a caller set them to 0): a deferred chunk whose emission passed
+# its capacity, scanned again exactly, and a fused build that fell back to the
+# per-chunk path for a record above the chunk budget.
+counters = {'overflow_reruns': 0, 'fused_fallbacks': 0}
 
 
 def build(
@@ -126,6 +144,7 @@ def _shard_devices(devices: int, dev: torch.device) -> list[torch.device]:
 def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 n_cpu: int, low_memory: bool, backend: str, defer: bool,
                 devices: int = 1, device=None, keep_codes: bool = False):
+    timeline.gate()
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
     if len(paths) != len(targets):
@@ -161,59 +180,165 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                                      defer=defer, low_memory=low_memory,
                                      keep_codes=keep_codes)
     use_sort_engine = os.environ.get('SEQWIN_TPU_TORCH_SCAN', 'hybrid') == 'sort'
-    scan_chunk = scan_chunk_sort if use_sort_engine else scan_chunk_device
     chunk_budget = LOW_MEMORY_CHUNK_BASES if low_memory else int(
         os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
+    use_fused = not use_sort_engine and os.environ.get('SEQWIN_TPU_TORCH_FUSED', '0') == '1'
 
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
     kept_codes: list[list[np.ndarray]] = []
-    chunk_results = []
+
+    def take(ids, codes_list):
+        record_ids.append(tuple(ids))
+        record_offsets.append(record_offsets[-1] + len(ids))
+        if keep_codes:
+            kept_codes.append(codes_list)
+
+    def finish(res):
+        offsets = np.array(record_offsets, dtype=np.uintp)
+        if defer:
+            if keep_codes:
+                res.record_codes = kept_codes
+            return res, offsets, record_ids
+        kmers, nodes, edges = res
+        return kmers, nodes, edges, offsets, record_ids
+
+    assemblies = iter_assemblies(paths, n_cpu)
+    if use_fused:
+        # the one-program build needs every record up front: no streamed
+        # ingest. A record above the budget falls back to the per-chunk
+        # path, which splits it into blocks
+        parsed = list(assemblies)
+        chunk_lists, oversized = _group_chunks(parsed, chunk_budget)
+        if not oversized:
+            for ids, codes_list in parsed:
+                take(ids, codes_list)
+            return finish(build_fused(
+                chunk_lists, kmerlen, windowsize, np.array(record_offsets, dtype=np.uintp),
+                targets, n_cpu=n_cpu, defer=defer, device=dev))
+        logger.debug('build: fused fell back to per-chunk path')
+        counters['fused_fallbacks'] += 1
+        assemblies = parsed
+
+    chunk_results = []  # (e_oh, e_pos, e_rec, count, e_asm) per chunk, scan order
+    chunk_inputs = []   # (records, rec_base, pinned prep) of a deferred chunk, else None
+    pending = deque()   # (future of the prep, records, rec_base), chunk order
     chunk_codes: list[np.ndarray] = []
     chunk_rec_base = 0
     chunk_bases = 0
+
+    def dispatch(block: bool):
+        """Dispatch the prepped chunks at the head of ``pending``, in chunk
+        order; with ``block``, all of them."""
+        while pending and (block or pending[0][0].done()):
+            fut, recs, base = pending.popleft()
+            prep = fut.result()
+            if not prep[0].numel():
+                chunk_results.append((None, None, None, 0, None))
+                chunk_inputs.append(None)
+                continue
+            chunk_results.append(scan_chunk_deferred(prep, kmerlen, windowsize, base, dev))
+            chunk_inputs.append((recs, base, prep))
 
     def flush():
         nonlocal chunk_codes, chunk_rec_base, chunk_bases
         if not chunk_codes:
             return
-        chunk_results.append(scan_chunk(
-            chunk_codes, kmerlen, windowsize, chunk_rec_base,
-            record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev))
+        offsets = np.array(record_offsets, dtype=np.uintp)
+        if use_sort_engine:
+            chunk_results.append(scan_chunk_sort(
+                chunk_codes, kmerlen, windowsize, chunk_rec_base, record_offsets=offsets,
+                device=dev))
+            chunk_inputs.append(None)
+        else:
+            pending.append((prep_pool.submit(pinned_host_prep, chunk_codes, kmerlen, windowsize,
+                                             chunk_rec_base, offsets, dev),
+                            chunk_codes, chunk_rec_base))
+            dispatch(block=False)
         chunk_rec_base += len(chunk_codes)
         chunk_codes, chunk_bases = [], 0
 
-    # files parse in worker threads while earlier chunks scan
-    for ids, codes_list in iter_assemblies(paths, n_cpu):
-        record_ids.append(tuple(ids))
-        record_offsets.append(record_offsets[-1] + len(ids))
-        if keep_codes:
-            kept_codes.append(codes_list)
-        for codes in codes_list:
-            if not use_sort_engine and len(codes) > chunk_budget:
-                # a record longer than the budget: its own halo'd blocks,
-                # in scan order after the chunk before it
-                flush()
-                chunk_results.extend(scan_record_blocks(
-                    codes, kmerlen, windowsize, chunk_rec_base, chunk_budget,
-                    record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev))
-                chunk_rec_base += 1
-                continue
-            if chunk_bases + len(codes) > chunk_budget and chunk_codes:
-                flush()
-            chunk_codes.append(codes)
-            chunk_bases += len(codes)
-    flush()
+    # files parse in worker threads, chunks prep in a pool of their own, and
+    # the main thread dispatches each prepped chunk in chunk order while
+    # later ones parse and prep
+    prep_pool = ThreadPoolExecutor(max_workers=max(1, min(4, int(n_cpu))))
+    ok = False
+    try:
+        for ids, codes_list in assemblies:
+            take(ids, codes_list)
+            for codes in codes_list:
+                if not use_sort_engine and len(codes) > chunk_budget:
+                    # a record longer than the budget: its own halo'd blocks,
+                    # in scan order after the chunk before it
+                    flush()
+                    dispatch(block=True)
+                    blocks = scan_record_blocks(
+                        codes, kmerlen, windowsize, chunk_rec_base, chunk_budget,
+                        record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev)
+                    chunk_results.extend(blocks)
+                    chunk_inputs.extend([None] * len(blocks))
+                    chunk_rec_base += 1
+                    continue
+                if chunk_bases + len(codes) > chunk_budget and chunk_codes:
+                    flush()
+                chunk_codes.append(codes)
+                chunk_bases += len(codes)
+            dispatch(block=False)
+        flush()
+        dispatch(block=True)
+        ok = True
+    finally:
+        prep_pool.shutdown(wait=True, cancel_futures=not ok)
 
     offsets = np.array(record_offsets, dtype=np.uintp)
+    if not use_sort_engine:
+        # one batched fetch of every deferred count; a chunk whose count
+        # passed its emission capacity is scanned again, exactly
+        deferred = [i for i, inp in enumerate(chunk_inputs) if inp is not None]
+        timeline.mark('counts_fetch_start', n_chunks=len(deferred))
+        counts = torch.stack([chunk_results[i][3] for i in deferred]).tolist() if deferred else []
+        timeline.mark('counts_fetched')
+        for i, count in zip(deferred, counts):
+            recs, base, _ = chunk_inputs[i]
+            e_oh, e_pos, e_rec, _, e_asm = chunk_results[i]
+            if count <= e_oh.numel():
+                chunk_results[i] = (e_oh[:count], e_pos[:count], e_rec[:count], count,
+                                    e_asm[:count])
+            else:
+                logger.debug(f'build: chunk at record {base} emitted {count} minimizers, above '
+                             f'its capacity {e_oh.numel()}; scanning it again')
+                counters['overflow_reruns'] += 1
+                chunk_results[i] = scan_chunk_device(recs, kmerlen, windowsize, base,
+                                                     record_offsets=offsets, device=dev)
+        del chunk_inputs  # the pinned host buffers, now that every copy is done
     with record_function('build.aggregate'):
         res = aggregate_device(chunk_results, np.asarray(targets, dtype=bool), defer=defer)
-    if defer:
-        if keep_codes:
-            res.record_codes = kept_codes
-        return res, offsets, record_ids
-    kmers, nodes, edges = res
-    return kmers, nodes, edges, offsets, record_ids
+    return finish(res)
+
+
+def _group_chunks(parsed, chunk_budget: int):
+    """Group records into budgeted chunks, the packing rule of the
+    per-chunk dispatch loop. ``parsed``: (record ids, record codes) per
+    assembly. Returns ([(record codes, rec_base), ...], any record above
+    the budget)."""
+    lists: list[tuple[list[np.ndarray], int]] = []
+    cur: list[np.ndarray] = []
+    rec_base = 0
+    bases = 0
+    oversized = False
+    for _, codes_list in parsed:
+        for codes in codes_list:
+            if len(codes) > chunk_budget:
+                oversized = True
+            if bases + len(codes) > chunk_budget and cur:
+                lists.append((cur, rec_base))
+                rec_base += len(cur)
+                cur, bases = [], 0
+            cur.append(codes)
+            bases += len(codes)
+    if cur:
+        lists.append((cur, rec_base))
+    return lists, oversized
 
 
 def _build_numpy(paths, kmerlen, windowsize, targets, oracle=False):

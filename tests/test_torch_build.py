@@ -73,6 +73,30 @@ def test_build_matches_jax(fastas, reference, monkeypatch, budget):
     _assert_build_equal(got, reference)
 
 
+@pytest.mark.parametrize('n_cpu', [1, 4])
+@pytest.mark.parametrize('overflow', [False, True], ids=['fits', 'every_chunk_overflows'])
+def test_deferred_dispatch_matches_jax(fastas, reference, monkeypatch, n_cpu, overflow):
+    """The deferred, threaded chunk dispatch with one and four prep threads,
+    and with an emission capacity so small that every chunk overflows it
+    and is scanned again exactly: byte-equal to the JAX package."""
+    import importlib
+
+    from seqwin_tpu_torch.engine import hybrid
+
+    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', '30000')
+    monkeypatch.setitem(build_mod.counters, 'overflow_reruns', 0)
+    if overflow:
+        monkeypatch.setattr(hybrid, 'emit_capacity', lambda n, w: 8)
+    paths, targets = fastas
+    got = build(paths, K, W, targets, n_cpu=n_cpu, device='cpu')
+    _assert_build_equal(got, reference)
+    graph, *_ = build_deferred(paths, K, W, targets, n_cpu=n_cpu, device='cpu')
+    np.testing.assert_array_equal(graph.nodes, reference[1])
+    assert build_mod.counters['overflow_reruns'] == (2 * graph.n_chunks if overflow else 0)
+    assert graph.n_chunks > 3
+
+
 @pytest.fixture(scope='module')
 def deferred(fastas):
     paths, targets = fastas

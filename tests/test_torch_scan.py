@@ -89,3 +89,60 @@ def test_rot_seed_tables_match_jax(k):
     fwd, rev = jax_hybrid._rot_seed_tables(k)
     np.testing.assert_array_equal(u64.to_numpy(tabs[0]), fwd[:, :4])
     np.testing.assert_array_equal(u64.to_numpy(tabs[1]), rev[:, :4])
+
+
+def _random_codes(rng, n, n_frac=0.0, run_frac=0.0):
+    """`tests/test_hybrid.py`'s record generator: random bases, scattered
+    Ns and N runs."""
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    if n_frac > 0:
+        codes[rng.random(n) < n_frac] = 255
+    if run_frac > 0:
+        for _ in range(max(1, int(n * run_frac / 20))):
+            s = int(rng.integers(0, n))
+            codes[s:s + int(rng.integers(1, 40))] = 255
+    return codes
+
+
+def _hybrid_cases():
+    """The case mix of `tests/test_hybrid.py`: (k, w, records)."""
+    cases = []
+    for k, w in [(7, 10), (21, 200), (8, 1), (1, 4)]:
+        rng = np.random.default_rng(k * 31 + w)
+        cases.append((k, w, [_random_codes(rng, n, f, r) for n, f, r in [
+            (500, 0.0, 0.0), (1500, 0.02, 0.0), (30, 0.0, 0.0), (k + w - 2, 0.0, 0.0),
+            (2048, 0.0, 0.3), (4000, 0.05, 0.1)]]))
+    for seed in range(2):
+        rng = np.random.default_rng(seed)
+        k, w = int(rng.integers(3, 25)), int(rng.integers(1, 80))
+        cases.append((k, w, [_random_codes(rng, int(rng.integers(10, 3000)), 0.03, 0.2)
+                             for _ in range(int(rng.integers(1, 8)))]))
+    rng = np.random.default_rng(99)
+    c2 = np.full(800, 255, dtype=np.uint8)
+    for a, b in ((100, 180), (200, 260), (300, 700)):
+        c2[a:b] = rng.integers(0, 4, b - a)
+    c1 = _random_codes(rng, 2000)
+    c1[500:520] = 255
+    cases.append((11, 16, [c1, c2, _random_codes(rng, 64)]))
+    rng = np.random.default_rng(21)
+    cases.append((7, 4, [np.zeros(0, np.uint8), rng.integers(0, 4, 500).astype(np.uint8),
+                         np.zeros(0, np.uint8), rng.integers(0, 4, 3).astype(np.uint8),
+                         rng.integers(0, 4, 800).astype(np.uint8), np.zeros(0, np.uint8)]))
+    cases.append((7, 4, [np.zeros(0, np.uint8), np.zeros(0, np.uint8)]))
+    return cases
+
+
+@pytest.mark.parametrize('case', range(10), ids=[
+    'k7_w10', 'k21_w200', 'k8_w1', 'k1_w4', 'random0', 'random1', 'edge_patterns',
+    'empty_and_tiny', 'empty_only', 'single_short'])
+def test_scan_records_hybrid_matches_jax(monkeypatch, case):
+    """`scan_records_hybrid` against the JAX package's, arrays and dtypes."""
+    monkeypatch.setenv('SEQWIN_TPU_PHASE1', 'xla')
+    monkeypatch.setenv('SEQWIN_TPU_EXTRACT', 'topk')
+    cases = _hybrid_cases() + [(5, 3, [np.arange(12, dtype=np.uint8) % 4])]
+    k, w, records = cases[case]
+    got = hybrid.scan_records_hybrid(records, k, w, device='cpu')
+    want = jax_hybrid.scan_records_hybrid(records, k, w)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
