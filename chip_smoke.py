@@ -578,7 +578,7 @@ def timeline_gaps(events) -> dict:
     thread between two dispatches; the last dispatch to the count fetch;
     the fetch's wait (the card finishing what was queued); the fetch to
     the node merge's end and on to the node columns' d2h; and the wall
-    from the first prep to that d2h."""
+    from the first prep to that d2h. Marks are stamped in ns."""
     chunks, rest = {}, {}
     for t, name, attrs in events:
         if 'rec_base' in attrs:
@@ -589,7 +589,7 @@ def timeline_gaps(events) -> dict:
                    key=lambda c: c['h2d_submit'])
 
     def ms(vals):
-        vals = [v * 1e3 for v in vals]
+        vals = [v / 1e6 for v in vals]
         return dict(sum=sum(vals), max=max(vals, default=0.0), n=len(vals),
                     max_at=int(np.argmax(vals)) if vals else None)
 
@@ -600,13 +600,13 @@ def timeline_gaps(events) -> dict:
         dispatch_ms=ms(c['dispatched'] - c['h2d_submit'] for c in order),
         between_dispatches_ms=ms(b['h2d_submit'] - a['dispatched']
                                  for a, b in zip(order, order[1:])),
-        first_prep_to_first_dispatch_ms=(order[0]['h2d_submit'] - first) * 1e3,
-        first_prep_to_last_dispatch_ms=(order[-1]['dispatched'] - first) * 1e3,
-        last_dispatch_to_fetch_ms=(rest['counts_fetch_start'] - order[-1]['dispatched']) * 1e3,
-        fetch_wait_ms=(rest['counts_fetched'] - rest['counts_fetch_start']) * 1e3,
-        fetch_to_merge_nodes_ms=(rest['agg_merge_nodes_done'] - rest['counts_fetched']) * 1e3,
-        merge_nodes_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - rest['agg_merge_nodes_done']) * 1e3,
-        first_prep_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - first) * 1e3)
+        first_prep_to_first_dispatch_ms=(order[0]['h2d_submit'] - first) / 1e6,
+        first_prep_to_last_dispatch_ms=(order[-1]['dispatched'] - first) / 1e6,
+        last_dispatch_to_fetch_ms=(rest['counts_fetch_start'] - order[-1]['dispatched']) / 1e6,
+        fetch_wait_ms=(rest['counts_fetched'] - rest['counts_fetch_start']) / 1e6,
+        fetch_to_merge_nodes_ms=(rest['agg_merge_nodes_done'] - rest['counts_fetched']) / 1e6,
+        merge_nodes_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - rest['agg_merge_nodes_done']) / 1e6,
+        first_prep_to_nodes_d2h_ms=(rest['agg_kn_d2h_done'] - first) / 1e6)
 
 
 def timeline_run(fn):
@@ -952,7 +952,11 @@ def profile_run(build_fn, paths, targets, config, spans):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
 
-    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from seqwin_tpu_torch.engine import timeline
+
+    # the package's spans reach the profiler only with the recorder on
+    with timeline.recording(), tprof(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
         main_path(build_fn, paths, targets, config)
     avg = prof.key_averages()
     log(avg.table(sort_by='cuda_time_total', row_limit=15))
@@ -1712,7 +1716,10 @@ def worker(task_file: str, rank: int) -> int:
     if task['profile']:
         from torch.profiler import ProfilerActivity, profile as tprof
 
-        with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        from seqwin_tpu_torch.engine import timeline
+
+        with timeline.recording(), tprof(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
             multihost_build(False)
         avg = prof.key_averages()
         out['profile'] = dict(device_busy_ms=device_busy_ms(avg), spans=host_spans(avg, (

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import timeline
 from .aggregate import aggregate_device
 from .hybrid import _asm_table, _emission, _emitted_streams, chunk_host_prep
 from .phase1 import phase1_z
@@ -71,11 +72,12 @@ class ChunkPrep:
 
 
 def prep_chunk(record_codes, k: int, w: int, rec_base: int, offset: int,
-               out: np.ndarray) -> ChunkPrep:
+               out: np.ndarray, parent=None) -> ChunkPrep:
     """Host prep of one chunk into ``out``, its slice of the stream buffer
     (`hybrid.chunk_host_prep`; no device calls, so chunks prep in parallel
-    threads)."""
-    _, starts, irr_pos, patch_z, _ = chunk_host_prep(record_codes, k, w, rec_base, out=out)
+    threads, each span a child of ``parent``)."""
+    _, starts, irr_pos, patch_z, _ = chunk_host_prep(record_codes, k, w, rec_base, out=out,
+                                                     parent=parent)
     return ChunkPrep(offset=offset, starts=starts, patch_pos=irr_pos, patch_z=patch_z)
 
 
@@ -154,7 +156,8 @@ def build_fused(
     spec = FusedSpec(k=kmerlen, w=windowsize, n=int(chunk_offsets[-1]),
                      groups=_launch_groups(chunk_offsets))
     stream = torch.empty(spec.n, dtype=torch.uint8, pin_memory=dev.type == 'cuda')
-    prep = functools.partial(_prep_one, k=kmerlen, w=windowsize, stream=stream.numpy())
+    prep = functools.partial(_prep_one, k=kmerlen, w=windowsize, stream=stream.numpy(),
+                             parent=timeline.current())
     items = [(recs, rec_base, int(chunk_offsets[c]), int(chunk_offsets[c + 1]))
              for c, (recs, rec_base) in enumerate(chunk_lists)]
     workers = max(1, min(int(n_cpu), len(items)))
@@ -171,6 +174,6 @@ def build_fused(
     return aggregate_device(chunks, is_target, defer=defer)
 
 
-def _prep_one(item, k, w, stream):
+def _prep_one(item, k, w, stream, parent):
     record_codes, rec_base, lo, hi = item
-    return prep_chunk(record_codes, k, w, rec_base, lo, stream[lo:hi])
+    return prep_chunk(record_codes, k, w, rec_base, lo, stream[lo:hi], parent)

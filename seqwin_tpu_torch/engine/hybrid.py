@@ -37,12 +37,17 @@ which knows every shard's exact counts from its pre-pass, takes the pfx
 extraction (`scan_phase2_pfx` over kernel B3's tile staircases,
 counterpart of the JAX `scan_phase2_pfx`), which needs no host sync to
 size its outputs.
+
+Spans (`engine/timeline.py`): ``hybrid.host_prep`` around every chunk's
+host prep, in whichever thread runs it (``parent`` names the span that
+handed it over), and ``block.sync`` around each host read of the block
+path: `scan_chunk_device`'s boolean index of the emission and
+`_block_adjust`'s `tolist()`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..ops import u64
@@ -365,13 +370,15 @@ def out_hash(canon: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def chunk_host_prep(record_codes: list[np.ndarray], k: int, w: int,
-                    rec_base: int = 0, record_offsets=None, out: np.ndarray | None = None):
+                    rec_base: int = 0, record_offsets=None, out: np.ndarray | None = None,
+                    parent=None):
     """Host prep of one stream of whole records: the augmented byte stream
     (bit 6 = record start; written into ``out`` when given), record starts,
     the irregular-window patches and the local record -> assembly table.
-    Pure numpy: chunks prep in parallel threads."""
-    with record_function('hybrid.host_prep'):
-        total = int(sum(len(c) for c in record_codes))
+    Pure numpy: chunks prep in parallel threads (``parent``: the span that
+    handed the chunk over)."""
+    total = int(sum(len(c) for c in record_codes))
+    with timeline.span('hybrid.host_prep', parent=parent, rec_base=rec_base, bases=total):
         codes, starts = _host_layout(record_codes, total, out=out)
         # empty records share their start with the next record (or sit at total)
         codes[starts[starts < total]] |= 64
@@ -412,7 +419,7 @@ def _emission_capped(z: torch.Tensor, cap: int):
 
 
 def pinned_host_prep(record_codes: list[np.ndarray], k: int, w: int, rec_base: int,
-                     record_offsets, device: torch.device):
+                     record_offsets, device: torch.device, parent=None):
     """The host half of a deferred chunk scan: `chunk_host_prep` as torch
     tensors, in page-locked memory when ``device`` is a GPU (the source of
     `scan_chunk_deferred`'s copies that do not block). The caller keeps
@@ -421,7 +428,8 @@ def pinned_host_prep(record_codes: list[np.ndarray], k: int, w: int, rec_base: i
     timeline.mark('prep_start', rec_base=rec_base, bases=total)
     pin = device.type == 'cuda'
     buf = torch.empty(total, dtype=torch.uint8, pin_memory=pin)
-    _, *rest = chunk_host_prep(record_codes, k, w, rec_base, record_offsets, out=buf.numpy())
+    _, *rest = chunk_host_prep(record_codes, k, w, rec_base, record_offsets, out=buf.numpy(),
+                               parent=parent)
     rest = [torch.from_numpy(a) for a in rest]
     return (buf, *(t.pin_memory() for t in rest)) if pin else (buf, *rest)
 
@@ -475,7 +483,8 @@ def scan_chunk_device(record_codes: list[np.ndarray], k: int, w: int,
     z = phase1_z(codes_d, k, w)
     if len(irr_pos):
         z[torch.from_numpy(irr_pos).to(dev).long()] = torch.from_numpy(patch_z).to(dev)
-    eidx = _emission(z).long()
+    with timeline.span('block.sync'):
+        eidx = _emission(z).long()
     e_oh, e_pos, e_rec, e_asm = _emitted_streams(
         codes_d, eidx, k, torch.from_numpy(starts).to(dev), rec_base,
         torch.from_numpy(asm_tab).to(dev))
@@ -531,7 +540,8 @@ def _block_adjust(res, b0: int, carry: int):
     if not count:
         return res, carry
     gpos = e_pos + b0
-    n_drop, last = torch.stack([(gpos <= carry).sum(), gpos[-1]]).tolist()
+    with timeline.span('block.sync'):
+        n_drop, last = torch.stack([(gpos <= carry).sum(), gpos[-1]]).tolist()
     return ((e_oh[n_drop:], gpos[n_drop:], e_rec[n_drop:], count - n_drop, e_asm[n_drop:]),
             max(carry, last))
 

@@ -27,6 +27,14 @@ same output. ``backend='numpy'|'oracle'`` builds on the host with
 `ops/host_build.py` or `ops/oracle.py` and touches no device.
 ``SEQWIN_TPU_MULTIHOST`` set takes the multi-host build
 (`parallel/multihost.py`) over every process of a `torch.distributed` group.
+
+Spans (`engine/timeline.py`): ``build`` around a build; in it
+``build.ingest_wait`` (the main thread waiting on the next parsed assembly;
+the parse threads' ``io.parse`` are children of ``build``),
+``hybrid.host_prep`` in the prep pool's threads, ``build.prep_wait`` (the
+main thread blocked on a prep future), ``build.dispatch`` (a deferred
+chunk's enqueue), ``build.blocks`` per long record (its ``block.sync``
+reads inside), ``build.counts_fetch`` and ``build.aggregate``.
 """
 from __future__ import annotations
 
@@ -39,7 +47,6 @@ from typing import Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..engine import timeline
@@ -145,6 +152,13 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 n_cpu: int, low_memory: bool, backend: str, defer: bool,
                 devices: int = 1, device=None, keep_codes: bool = False):
     timeline.gate()
+    with timeline.span('build'):
+        return _build_body(assembly_paths, kmerlen, windowsize, is_targets, n_cpu, low_memory,
+                           backend, defer, devices, device, keep_codes)
+
+
+def _build_body(assembly_paths, kmerlen, windowsize, is_targets, n_cpu, low_memory, backend,
+                defer, devices, device, keep_codes):
     paths = [str(p) for p in assembly_paths]
     targets = [bool(t) for t in is_targets]
     if len(paths) != len(targets):
@@ -208,7 +222,8 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         # the one-program build needs every record up front: no streamed
         # ingest. A record above the budget falls back to the per-chunk
         # path, which splits it into blocks
-        parsed = list(assemblies)
+        with timeline.span('build.ingest_wait'):
+            parsed = list(assemblies)
         chunk_lists, oversized = _group_chunks(parsed, chunk_budget)
         if not oversized:
             for ids, codes_list in parsed:
@@ -232,12 +247,17 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         order; with ``block``, all of them."""
         while pending and (block or pending[0][0].done()):
             fut, recs, base = pending.popleft()
-            prep = fut.result()
+            if block:
+                with timeline.span('build.prep_wait', rec_base=base):
+                    prep = fut.result()
+            else:
+                prep = fut.result()  # done
             if not prep[0].numel():
                 chunk_results.append((None, None, None, 0, None))
                 chunk_inputs.append(None)
                 continue
-            chunk_results.append(scan_chunk_deferred(prep, kmerlen, windowsize, base, dev))
+            with timeline.span('build.dispatch', rec_base=base):
+                chunk_results.append(scan_chunk_deferred(prep, kmerlen, windowsize, base, dev))
             chunk_inputs.append((recs, base, prep))
 
     def flush():
@@ -252,7 +272,7 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
             chunk_inputs.append(None)
         else:
             pending.append((prep_pool.submit(pinned_host_prep, chunk_codes, kmerlen, windowsize,
-                                             chunk_rec_base, offsets, dev),
+                                             chunk_rec_base, offsets, dev, timeline.current()),
                             chunk_codes, chunk_rec_base))
             dispatch(block=False)
         chunk_rec_base += len(chunk_codes)
@@ -264,7 +284,13 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
     prep_pool = ThreadPoolExecutor(max_workers=max(1, min(4, int(n_cpu))))
     ok = False
     try:
-        for ids, codes_list in assemblies:
+        assemblies = iter(assemblies)
+        while True:
+            with timeline.span('build.ingest_wait'):
+                item = next(assemblies, None)
+            if item is None:
+                break
+            ids, codes_list = item
             take(ids, codes_list)
             for codes in codes_list:
                 if not use_sort_engine and len(codes) > chunk_budget:
@@ -272,9 +298,11 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                     # in scan order after the chunk before it
                     flush()
                     dispatch(block=True)
-                    blocks = scan_record_blocks(
-                        codes, kmerlen, windowsize, chunk_rec_base, chunk_budget,
-                        record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev)
+                    with timeline.span('build.blocks', rec=chunk_rec_base, bases=len(codes)) as s:
+                        blocks = scan_record_blocks(
+                            codes, kmerlen, windowsize, chunk_rec_base, chunk_budget,
+                            record_offsets=np.array(record_offsets, dtype=np.uintp), device=dev)
+                        s.set(blocks=len(blocks))
                     chunk_results.extend(blocks)
                     chunk_inputs.extend([None] * len(blocks))
                     chunk_rec_base += 1
@@ -296,7 +324,9 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
         # passed its emission capacity is scanned again, exactly
         deferred = [i for i, inp in enumerate(chunk_inputs) if inp is not None]
         timeline.mark('counts_fetch_start', n_chunks=len(deferred))
-        counts = torch.stack([chunk_results[i][3] for i in deferred]).tolist() if deferred else []
+        with timeline.span('build.counts_fetch', chunks=len(deferred)):
+            counts = (torch.stack([chunk_results[i][3] for i in deferred]).tolist()
+                      if deferred else [])
         timeline.mark('counts_fetched')
         for i, count in zip(deferred, counts):
             recs, base, _ = chunk_inputs[i]
@@ -311,7 +341,7 @@ def _build_impl(assembly_paths, kmerlen: int, windowsize: int, is_targets,
                 chunk_results[i] = scan_chunk_device(recs, kmerlen, windowsize, base,
                                                      record_offsets=offsets, device=dev)
         del chunk_inputs  # the pinned host buffers, now that every copy is done
-    with record_function('build.aggregate'):
+    with timeline.span('build.aggregate'):
         res = aggregate_device(chunk_results, np.asarray(targets, dtype=bool), defer=defer)
     return finish(res)
 

@@ -16,12 +16,14 @@ byte).
 from __future__ import annotations
 
 import gzip
+import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
+from ..engine import timeline
 from ..ops.hashing import CODE_TAB
 
 _WS_BYTES = np.zeros(256, dtype=bool)
@@ -150,12 +152,28 @@ def load_fasta(path: str | Path) -> tuple[str, ...]:
     return tuple(seqs)
 
 
+def _parse_in_span(path, parent) -> tuple[list[str], list[np.ndarray]]:
+    """`parse_fasta_codes` as span ``io.parse`` (file bytes, records), a
+    child of ``parent``."""
+    with timeline.span('io.parse', parent=parent) as s:
+        ids, codes_list = parse_fasta_codes(path)
+        if s:
+            s.set(bytes=os.path.getsize(path), records=len(ids))
+    return ids, codes_list
+
+
 def iter_assemblies(paths: list[str], n_cpu: int):
     """Yield (record ids, per-record base codes) of each assembly in order,
-    parsed in worker threads, after the uint32 range checks."""
+    parsed in worker threads (span ``io.parse`` each, a child of the span
+    open at this call), after the uint32 range checks."""
+    return _iter_assemblies(paths, n_cpu, timeline.current())
+
+
+def _iter_assemblies(paths: list[str], n_cpu: int, parent):
     n_records = 0
     with ThreadPoolExecutor(max_workers=max(1, min(int(n_cpu), len(paths) or 1))) as ex:
-        for pi, (ids, codes_list) in enumerate(ex.map(parse_fasta_codes, paths)):
+        for pi, (ids, codes_list) in enumerate(
+                ex.map(_parse_in_span, paths, [parent] * len(paths))):
             n_records += len(ids)
             if n_records > U32_MAX:
                 raise ValueError('Total number of FASTA records exceeds uint32 range')

@@ -56,8 +56,8 @@ import logging
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from ..engine import timeline
 from ..engine.aggregate import (
     HostGraph,
     _edges_host,
@@ -529,15 +529,15 @@ def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
     shards, extras = _layout(record_codes, record_offsets, k, w, devices, rec_base0,
                              sequence_shard=len(per_proc) == 1)
 
-    with record_function('distributed.prepass'):
+    with timeline.span('distributed.prepass'):
         counts, e_hist, p_hist = _read_prepass(_prepass(shards, k, w, n_dev, extras), n_dev)
         if len(per_proc) > 1:
             counts, e_hist, p_hist = _gather_prepass(counts, e_hist, p_hist)
-    with record_function('distributed.step'):
+    with timeline.span('distributed.step'):
         rx_nodes, rx_pairs, sent, checks = _step(shards, k, w, counts, e_hist, p_hist, devices,
                                                  extras, first)
     if sent is not None:
-        with record_function('distributed.exchange'):
+        with timeline.span('distributed.exchange'):
             # the payload columns of `_route_shard`: (oh, pos, rec, asm), (u, v, asm)
             rx_nodes = _exchange_across([(g, nb) for g, nb, _ in sent], rx_nodes, e_hist,
                                         per_proc, devices, 4)
@@ -550,7 +550,7 @@ def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
     tmask = np.asarray(is_target, dtype=bool)
     kmers, nodes, edges = [], [], []
     base = int(e_hist[:, :first].sum())
-    with record_function('distributed.merge'):
+    with timeline.span('distributed.merge'):
         for j, dev in enumerate(devices):
             if e_hist[:, first + j].sum():
                 oh, pos, rec, asm = (torch.cat(c) for c in zip(*rx_nodes[j]))
@@ -565,7 +565,7 @@ def build_distributed_arrays(record_codes: list[np.ndarray], record_offsets,
     out = [np.concatenate(parts or [np.zeros(0, dtype)])
            for parts, dtype in ((kmers, KMER_DTYPE), (nodes, NODE_DTYPE), (edges, EDGE_DTYPE))]
     if len(per_proc) > 1:
-        with record_function('distributed.gather'):
+        with timeline.span('distributed.gather'):
             out = [np.concatenate(_allgather_ragged(a)) for a in out]
     _check_step(checks)
     return (*out, sum(s is not None for s in shards))

@@ -27,8 +27,8 @@ from pathlib import Path
 
 import numpy as np
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from ..engine import timeline
 from ..engine.aggregate import HostGraph
 from ..graph.dtypes import EDGE_DTYPE, KMER_DTYPE, NODE_DTYPE
 from ..io.fasta import iter_assemblies
@@ -161,7 +161,7 @@ def build_multihost(assembly_paths, kmerlen: int, windowsize: int, is_targets, d
         logger.info(f'process {pid}/{nproc}: parsing {len(mine)}/{hi - lo} assemblies '
                     f'(batch {lo}:{hi})')
         my_counts, my_ids, my_codes = [], [], []
-        with record_function('multihost.parse'):
+        with timeline.span('multihost.parse'):
             for ids, codes_list in iter_assemblies([paths[lo + i] for i in mine], n_cpu):
                 my_counts.append(len(ids))
                 my_ids.append(tuple(ids))

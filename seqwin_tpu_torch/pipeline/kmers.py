@@ -11,6 +11,12 @@ threshold from MinHash sketches computed on the run's device (`mash.py`).
 After `KmerGraph.filter()` the instance holds numpy arrays only: the device
 handle is released, so the forked marker workers never meet a tensor and
 the pickled run holds none.
+
+Spans (`engine/timeline.py`): ``phase.build_graph``, ``phase.threshold``
+(with ``threshold.sketches`` around the device sketches) and
+``phase.subgraphs`` (with ``subgraphs.edges``, the edge filter and the
+adjacency, ``subgraphs.search`` and ``subgraphs.compact``, the kept
+k-mers), each phase over the interval its ``Finished in`` timer measures.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from numpy.typing import NDArray
 
 from ..assemblies import Assemblies
 from ..config import HAS_MASH, WORKINGDIR, Config, RunState
+from ..engine import timeline
 from ..engine.aggregate import HostGraph
 from ..graph import HashGraph
 from ..graph.build import build_deferred, kept_node_layout
@@ -62,33 +69,35 @@ class KmerGraph:
         logger.info(f'Building minimizer graph from {n_assemblies} assemblies...')
         if low_memory:
             logger.warning(' - Low-memory mode is enabled; graph construction may take longer.')
-        tik = time()
+        with timeline.span('phase.build_graph'):
+            tik = time()
 
-        # deferred build: nodes land on the host (penalty/threshold math
-        # below is float64 host work); the k-mer stream and edges stay on the
-        # device until filter()/materialize() knows which entries are needed
-        graph, record_offsets, record_ids = build_deferred(
-            assemblies.path,
-            kmerlen,
-            windowsize,
-            assemblies.is_target,
-            n_cpu=n_cpu,
-            low_memory=low_memory,
-            backend=backend,
-            keep_codes=keep_codes,
-            devices=devices,
-            device=device,
-        )
-        nodes = graph.nodes
-        n_tar = sum(assemblies.is_target)
-        n_neg = n_assemblies - n_tar
-        nodes['penalty'] = frac_to_penalty(
-            nodes['n_tar'] / n_tar,
-            nodes['n_neg'] / n_neg,
-        )
-        assemblies.record_ids = record_ids
+            # deferred build: nodes land on the host (penalty/threshold math
+            # below is float64 host work); the k-mer stream and edges stay on
+            # the device until filter()/materialize() knows which entries are
+            # needed
+            graph, record_offsets, record_ids = build_deferred(
+                assemblies.path,
+                kmerlen,
+                windowsize,
+                assemblies.is_target,
+                n_cpu=n_cpu,
+                low_memory=low_memory,
+                backend=backend,
+                keep_codes=keep_codes,
+                devices=devices,
+                device=device,
+            )
+            nodes = graph.nodes
+            n_tar = sum(assemblies.is_target)
+            n_neg = n_assemblies - n_tar
+            nodes['penalty'] = frac_to_penalty(
+                nodes['n_tar'] / n_tar,
+                nodes['n_neg'] / n_neg,
+            )
+            assemblies.record_ids = record_ids
 
-        dt = time() - tik
+            dt = time() - tik
         logger.info(f' - Found {graph.n_kmers} minimizers')
         logger.info(f' - Found {len(nodes)} nodes (unique minimizers)')
         logger.info(f' - Found {graph.n_edges} weighted edges')
@@ -156,35 +165,41 @@ class KmerGraph:
             return None
 
         logger.info('Extracting low-penalty subgraphs from the k-mer graph...')
-        tik = time()
-        if max_nodes is None:
-            logger.warning(f' - Upper limit of subgraph size is not set. Lower limit is set to {min_nodes}')
-        else:
-            logger.info(f' - Subgraph size limit is set to [{min_nodes}, {max_nodes}]')
+        with timeline.span('phase.subgraphs'):
+            tik = time()
+            if max_nodes is None:
+                logger.warning(f' - Upper limit of subgraph size is not set. Lower limit is set to {min_nodes}')
+            else:
+                logger.info(f' - Subgraph size limit is set to [{min_nodes}, {max_nodes}]')
 
-        handle = getattr(self, '_graph', None)
-        if handle is None:
-            # host-array instances (tests / loaded results)
-            handle = HostGraph(self.kmers, self.nodes, self.edges)
+            handle = getattr(self, '_graph', None)
+            if handle is None:
+                # host-array instances (tests / loaded results)
+                handle = HostGraph(self.kmers, self.nodes, self.edges)
 
-        nodes, edges, graph, node_penalty = KmerGraph.__filter_graph(
-            self.nodes, handle, edge_weight_th
-        )
-        subgraphs, used_hashes = get_subgraphs(
-            graph, node_penalty, penalty_th, min_nodes, max_nodes, rng
-        )
+            with timeline.span('subgraphs.edges'):
+                nodes, edges, graph, node_penalty = KmerGraph.__filter_graph(
+                    self.nodes, handle, edge_weight_th
+                )
+            with timeline.span('subgraphs.search'):
+                subgraphs, used_hashes = get_subgraphs(
+                    graph, node_penalty, penalty_th, min_nodes, max_nodes, rng
+                )
 
-        logger.info(' - Removing k-mers not included in any of the subgraphs...')
-        # keep flags over the FULL node array (aligned with the device
-        # stream); used_hashes only holds hashes that survived the edge
-        # filter, so the kept rows are those the reference keeps
-        keep, nodes, total = kept_node_layout(self.nodes, used_hashes)
-        kmers = handle.compact_kmers(keep, total)
-        handle.release()
-        self._graph = None
-        logger.info(f' - {len(kmers)} k-mers left')
+            logger.info(' - Removing k-mers not included in any of the subgraphs...')
+            with timeline.span('subgraphs.compact'):
+                # keep flags over the FULL node array (aligned with the
+                # device stream); used_hashes only holds hashes that survived
+                # the edge filter, so the kept rows are those the reference
+                # keeps
+                keep, nodes, total = kept_node_layout(self.nodes, used_hashes)
+                kmers = handle.compact_kmers(keep, total)
+                handle.release()
+                self._graph = None
+            logger.info(f' - {len(kmers)} k-mers left')
+            dt = time() - tik
 
-        log_elapsed(time() - tik)
+        log_elapsed(dt)
         self.kmers = kmers
         self.nodes = nodes
         self.edges = edges
@@ -226,8 +241,9 @@ def _device_jaccard(assemblies: Assemblies, config: Config, records=None) -> NDA
     if records is None:
         records = [codes for _, codes in iter_assemblies([str(p) for p in assemblies.path],
                                                            config.n_cpu)]
-    sketches = device_sketches(records, config.kmerlen, config.sketchsize,
-                               seed_pattern=config.seed_pattern, device=device)
+    with timeline.span('threshold.sketches', assemblies=len(records)):
+        sketches = device_sketches(records, config.kmerlen, config.sketchsize,
+                                   seed_pattern=config.seed_pattern, device=device)
     return sketch_jaccard_matrix(sketches, config.sketchsize, device=device)
 
 
@@ -295,30 +311,32 @@ def get_kmers(
 
     if penalty_th is None:
         logger.info('Calculating penalty threshold...')
-        tik = time()
-        if config.sketch_mode == 'device':
-            handle = kmers._graph
-            jaccard = _device_jaccard(assemblies, config, records=handle.record_codes)
-            handle.record_codes = None  # free the kept parse
-            e_absence_tar = 1 - _expected_frac(jaccard[:n_tar, :n_tar])
-            e_presence_neg = _expected_frac(jaccard[n_tar:, :n_tar])
-        elif config.sketch_mode != 'minimizer' and config.run_mash and HAS_MASH:
-            jaccard = assemblies.mash(
-                kmerlen=config.kmerlen,
-                sketchsize=config.sketchsize,
-                out_path=state.working_dir / WORKINGDIR.mash,
-                overwrite=config.overwrite,
-                n_cpu=config.n_cpu,
-            )
-            e_absence_tar = 1 - _expected_frac(jaccard[:n_tar, :n_tar])
-            e_presence_neg = _expected_frac(jaccard[n_tar:, :n_tar])
-        else:
-            if config.run_mash and config.sketch_mode != 'minimizer':
-                logger.error('Mash is not installed. Falling back to minimizer sketches.')
-            e_absence_tar, e_presence_neg = minimizer_expectations(kmers.nodes, n_tar, n_neg)
-            jaccard = None
-        penalty_th = penalty_threshold(e_absence_tar, e_presence_neg, config)
-        log_elapsed(time() - tik)
+        with timeline.span('phase.threshold'):
+            tik = time()
+            if config.sketch_mode == 'device':
+                handle = kmers._graph
+                jaccard = _device_jaccard(assemblies, config, records=handle.record_codes)
+                handle.record_codes = None  # free the kept parse
+                e_absence_tar = 1 - _expected_frac(jaccard[:n_tar, :n_tar])
+                e_presence_neg = _expected_frac(jaccard[n_tar:, :n_tar])
+            elif config.sketch_mode != 'minimizer' and config.run_mash and HAS_MASH:
+                jaccard = assemblies.mash(
+                    kmerlen=config.kmerlen,
+                    sketchsize=config.sketchsize,
+                    out_path=state.working_dir / WORKINGDIR.mash,
+                    overwrite=config.overwrite,
+                    n_cpu=config.n_cpu,
+                )
+                e_absence_tar = 1 - _expected_frac(jaccard[:n_tar, :n_tar])
+                e_presence_neg = _expected_frac(jaccard[n_tar:, :n_tar])
+            else:
+                if config.run_mash and config.sketch_mode != 'minimizer':
+                    logger.error('Mash is not installed. Falling back to minimizer sketches.')
+                e_absence_tar, e_presence_neg = minimizer_expectations(kmers.nodes, n_tar, n_neg)
+                jaccard = None
+            penalty_th = penalty_threshold(e_absence_tar, e_presence_neg, config)
+            dt = time() - tik
+        log_elapsed(dt)
     else:
         logger.warning('Penalty threshold is provided (--penalty-th), skip auto estimation')
         jaccard = None

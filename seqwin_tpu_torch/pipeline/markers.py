@@ -6,10 +6,17 @@ building (`ConnectedKmers`, `_get_loc`, `_get_rep_order`,
 reference's groupby machinery, with the tie-breaks pinned in the
 docstrings. BLAST tables are dicts of numpy columns (`ncbi.Table`), and
 `signatures.csv` is written with the bytes pandas' `to_csv` gives.
+
+Spans (`engine/timeline.py`): ``phase.markers`` over the phase's timer,
+holding ``markers.candidates`` (the subgraphs' arguments built,
+``markers.candidate_args``, and the candidates made in forked workers) and
+``markers.fetch_seq`` (the representatives cut from re-read FASTAs);
+``markers.write`` for the two output files.
 """
 from __future__ import annotations
 
 import logging
+import os
 from collections import Counter
 from dataclasses import asdict, astuple, dataclass, fields
 from pathlib import Path
@@ -19,6 +26,7 @@ import numpy as np
 
 from ..assemblies import Assemblies
 from ..config import BLASTCONFIG, CONSEC_KMER_MUL, HAS_BLAST, WORKINGDIR, Config, RunState
+from ..engine import timeline
 from ..graph.hashgraph import HashGraph, OrderedKmers
 from ..ncbi import Table, blast
 from ..utils import claim_file, fail, log_elapsed, pool_map, write_csv
@@ -266,9 +274,14 @@ def _fetch_cks_seq(all_cks: list[ConnectedKmers], assemblies: Assemblies, n_cpu:
         (ck.rep.assembly_idx, ck.rep.record_idx, ck.rep.start, ck.rep.stop)
         for ck in all_cks
     ]
-    all_seq = assemblies.fetch_seq(spans, n_cpu)
-    for ck, seq in zip(all_cks, all_seq):
-        ck.rep.seq = seq
+    with timeline.span('markers.fetch_seq') as s:
+        if s:
+            asms = {a for a, _, _, _ in spans}
+            s.set(assemblies=len(asms),
+                  bytes=sum(os.path.getsize(assemblies.path[a]) for a in asms))
+        all_seq = assemblies.fetch_seq(spans, n_cpu)
+        for ck, seq in zip(all_cks, all_seq):
+            ck.rep.seq = seq
     return all_seq
 
 
@@ -283,22 +296,26 @@ def _get_cks(
 ) -> tuple[list[ConnectedKmers], list[str]]:
     """Create candidates, filter short/bad, fetch representative sequences."""
     logger.info('Finding a representative for each low-penalty subgraph...')
-    tik = time()
-    logger.info(' - Processing each subgraph...')
-    all_cks: list[ConnectedKmers] = pool_map(
-        _create_ck,
-        _get_create_ck_args(kmers, n_tar, kmerlen, windowsize),
-        processes=n_cpu,
-        total=len(kmers.subgraphs),
-    )
-    all_cks = [ck for ck in all_cks if (ck.len >= min_len) and (not ck.is_bad)]
-    logger.info(f' - Found {len(all_cks)} candidate signatures')
+    with timeline.span('phase.markers'):
+        tik = time()
+        logger.info(' - Processing each subgraph...')
+        with timeline.span('markers.candidates', subgraphs=len(kmers.subgraphs)) as s:
+            # a list, as `Pool.starmap` makes of an iterable without a length
+            with timeline.span('markers.candidate_args'):
+                args = list(_get_create_ck_args(kmers, n_tar, kmerlen, windowsize))
+            all_cks: list[ConnectedKmers] = pool_map(
+                _create_ck, args, processes=n_cpu, total=len(args))
+            del args
+            all_cks = [ck for ck in all_cks if (ck.len >= min_len) and (not ck.is_bad)]
+            s.set(kept=len(all_cks))
+        logger.info(f' - Found {len(all_cks)} candidate signatures')
 
-    logger.info(' - Fetching the representative sequence for each candidate...')
-    all_reps = _fetch_cks_seq(all_cks, assemblies, n_cpu=n_cpu)
-    for ck in all_cks:
-        ck.rep_ratio = ck.n_rep / n_tar
-    log_elapsed(time() - tik)
+        logger.info(' - Fetching the representative sequence for each candidate...')
+        all_reps = _fetch_cks_seq(all_cks, assemblies, n_cpu=n_cpu)
+        for ck in all_cks:
+            ck.rep_ratio = ck.n_rep / n_tar
+        dt = time() - tik
+    log_elapsed(dt)
     return all_cks, all_reps
 
 
@@ -461,24 +478,26 @@ def get_markers(
             logger.warning('Signature evaluation is turned off (--no-blast), skip running BLAST')
         blastdb = None
 
-    markers_fasta = working_dir / WORKINGDIR.markers_fasta
-    claim_file(markers_fasta, config.overwrite)
-    fasta = []
-    csv = []
-    all_record_ids = assemblies.record_ids
-    for ck in all_cks:
-        rep = ck.rep
-        record_id = all_record_ids[rep.assembly_idx][rep.record_idx]
-        header = f'{rep.assembly_idx}-{record_id}-{rep.start}:{rep.stop}'
-        fasta.append(f'>{header}\n{rep.seq}\n')
-        csv.append((header, ck.len, *astuple(ck.metrics), ck.rep_ratio, rep.n_kmers))
-    markers_fasta.write_text(''.join(fasta), encoding='utf-8', newline='\n')
-    logger.info(f'Candidate signatures saved as {markers_fasta}')
+    with timeline.span('markers.write', markers=len(all_cks)):
+        markers_fasta = working_dir / WORKINGDIR.markers_fasta
+        claim_file(markers_fasta, config.overwrite)
+        fasta = []
+        csv = []
+        all_record_ids = assemblies.record_ids
+        for ck in all_cks:
+            rep = ck.rep
+            record_id = all_record_ids[rep.assembly_idx][rep.record_idx]
+            header = f'{rep.assembly_idx}-{record_id}-{rep.start}:{rep.stop}'
+            fasta.append(f'>{header}\n{rep.seq}\n')
+            csv.append((header, ck.len, *astuple(ck.metrics), ck.rep_ratio, rep.n_kmers))
+        markers_fasta.write_text(''.join(fasta), encoding='utf-8', newline='\n')
+        logger.info(f'Candidate signatures saved as {markers_fasta}')
 
-    markers_csv = working_dir / WORKINGDIR.markers_csv
-    claim_file(markers_csv, config.overwrite)
-    write_csv(markers_csv, ('fasta_header', 'length', *_METRIC_NAMES, 'rep_ratio', 'n_nodes'), csv)
-    logger.info(f'Metrics of candidate signatures saved as {markers_csv}')
+        markers_csv = working_dir / WORKINGDIR.markers_csv
+        claim_file(markers_csv, config.overwrite)
+        write_csv(markers_csv, ('fasta_header', 'length', *_METRIC_NAMES, 'rep_ratio', 'n_nodes'),
+                  csv)
+        logger.info(f'Metrics of candidate signatures saved as {markers_csv}')
 
     state.blastdb = blastdb
     return all_cks

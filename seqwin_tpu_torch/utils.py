@@ -12,7 +12,10 @@ in for pandas' CSV writer). Three primitives:
 
 ``pool_map`` forks: by the time the pipeline calls it the parent may hold a
 CUDA context, so the functions it runs touch numpy and the standard library
-only, never torch.
+only, never torch. A pool's life is three spans of the recorder
+(`engine/timeline.py`): ``pool.start`` (the fork), ``pool.map`` and
+``pool.stop`` (the workers ended and reaped; ``child_cpu_s``, their user
+and system CPU seconds, taken only while the recorder is on).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import csv
 import datetime
 import logging
 import multiprocessing
+import resource
 import shlex
 import shutil
 import subprocess
@@ -29,6 +33,8 @@ from collections.abc import Callable, Hashable, Iterable
 from pathlib import Path
 from time import time
 from typing import Literal, NoReturn
+
+from .engine import timeline
 
 logger = logging.getLogger(__name__)
 
@@ -186,15 +192,30 @@ def pool_map(
     if processes < 1:
         fail(ValueError, 'n_cpu should be an positive integer')
     if processes == 1:
-        out = [fn(*j) for j in jobs] if star else [fn(j) for j in jobs]
+        with timeline.span('pool.map', processes=1, jobs=total):
+            out = [fn(*j) for j in jobs] if star else [fn(j) for j in jobs]
     else:
         chunksize = None if total is None else -(-total // (4 * processes)) or 1
-        with _pool_context().Pool(processes=processes) as pool:
-            mapper = pool.starmap if star else pool.map
-            out = mapper(fn, jobs, chunksize=chunksize)
+        cpu0 = _children_cpu_s() if timeline.enabled() else None
+        with timeline.span('pool.start', processes=processes):
+            pool = _pool_context().Pool(processes=processes)
+        try:
+            with timeline.span('pool.map', processes=processes, jobs=total, chunksize=chunksize):
+                out = (pool.starmap if star else pool.map)(fn, jobs, chunksize=chunksize)
+        finally:
+            with timeline.span('pool.stop') as s:
+                pool.terminate()  # what `with Pool()` does on exit; joins the workers
+                if s and cpu0 is not None:
+                    s.set(child_cpu_s=_children_cpu_s() - cpu0)
     if label:
         log_elapsed(time() - t0)
     return out
+
+
+def _children_cpu_s() -> float:
+    """User plus system CPU seconds of this process's reaped children."""
+    ru = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return ru.ru_utime + ru.ru_stime
 
 
 def write_csv(path: Path, header: Iterable[str], rows: Iterable[Iterable]) -> None:

@@ -108,3 +108,229 @@ def test_timeline_events_match_jax(fastas, clean_timelines, monkeypatch):
                for names in got_chunks.values())
     assert got_rest == want_rest == [('counts_fetch_start', 3), ('counts_fetched', None),
                                      ('agg_merge_nodes_done', None), ('agg_kn_d2h_done', None)]
+
+
+# --- the span recorder (`timeline.span`) ---
+
+SPAN_TABLE = (
+    'run', 'run.assemblies', 'run.save_results',
+    'phase.build_graph', 'phase.threshold', 'phase.subgraphs', 'phase.markers',
+    'build', 'io.parse', 'build.ingest_wait', 'hybrid.host_prep', 'build.prep_wait',
+    'build.dispatch', 'build.blocks', 'block.sync', 'build.counts_fetch', 'build.aggregate',
+    'threshold.sketches', 'subgraphs.edges', 'subgraphs.search', 'subgraphs.compact',
+    'markers.candidates', 'markers.candidate_args', 'markers.fetch_seq', 'markers.write',
+    'pool.start', 'pool.map', 'pool.stop',
+)
+MARKS = {'prep_start', 'h2d_submit', 'h2d_returned', 'dispatched', 'counts_fetch_start',
+         'counts_fetched', 'agg_merge_nodes_done', 'agg_kn_d2h_done'}
+
+
+def _annotations(prof):
+    """(name, start ns, end ns) of a stopped profiler's host annotations."""
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events() if e.is_user_annotation()]
+
+
+def test_span_off_records_nothing(clean_timelines):
+    from torch.profiler import ProfilerActivity, profile
+
+    assert timeline.span('a') is timeline.span('b', parent=None, x=1)  # one shared context
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timeline.span('seqwin.off') as s:
+            s.set(n=1)
+            assert not s and timeline.current() is None
+    assert timeline.spans() == [] and timeline.drain() == []
+    assert 'seqwin.off' not in [name for name, _, _ in _annotations(prof)]
+
+
+@pytest.fixture
+def slow_prep(monkeypatch):
+    """Every chunk's host prep takes 0.2 s more, so the main thread waits on
+    the last one (`build.prep_wait`) however the threads are scheduled."""
+    import time
+
+    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
+    orig = build_mod.pinned_host_prep
+
+    def prep(*args):
+        time.sleep(0.2)
+        return orig(*args)
+
+    monkeypatch.setattr(build_mod, 'pinned_host_prep', prep)
+
+
+def test_build_spans_from_prep_threads(fastas, clean_timelines, monkeypatch, slow_prep):
+    """A three-chunk build: the prep pool's `hybrid.host_prep` spans, on
+    threads of their own, are children of the build's span; the main
+    thread's waits are spans too."""
+    import threading
+
+    paths, targets = fastas
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    build(paths, K, W, targets, n_cpu=2, device='cpu')
+    spans = timeline.spans()
+    main = threading.get_native_id()
+    (root,) = [s for s in spans if s.name == 'build']
+    preps = [s for s in spans if s.name == 'hybrid.host_prep']
+    assert sorted(s.attrs['rec_base'] for s in preps) == [0, 2, 4]
+    assert all(s.thread != main and s.parent == root.id for s in preps)
+    assert all(s.attrs['bases'] > 0 for s in preps)
+    names = {s.name for s in spans}
+    assert {'build.ingest_wait', 'build.prep_wait', 'build.dispatch', 'io.parse',
+            'build.counts_fetch', 'build.aggregate'} <= names
+    assert all(s.run == root.id for s in spans)
+    assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in spans)
+    parses = [s for s in spans if s.name == 'io.parse']
+    assert len(parses) == 3 and all(s.parent == root.id and s.attrs['records'] == 2
+                                    for s in parses)
+
+
+def _genome(rng, root, snp):
+    g = root.copy()
+    idx = rng.integers(0, len(g), size=int(len(g) * snp))
+    g[idx] = (g[idx] + rng.integers(1, 4, size=idx.size)) % 4
+    return g
+
+
+@pytest.fixture(scope='module')
+def cli_lists(tmp_path_factory):
+    """Three targets and three non-targets of 60 kbp in two records, one of
+    45 kbp (above the 40 kbp budget the CLI test sets: the block path) and
+    one of 15 kbp (a deferred chunk); the path lists."""
+    tmp = tmp_path_factory.mktemp('timeline_cli')
+    rng = np.random.default_rng(12)
+    alpha = np.frombuffer(b'ACGTN', dtype=np.uint8)
+    root = rng.integers(0, 4, size=60_000).astype(np.uint8)
+    neg_root = _genome(rng, root, 0.08)
+    lists = []
+    for role, base, snp in (('tar', root, 0.005), ('neg', neg_root, 0.01)):
+        paths = []
+        for i in range(3):
+            g = _genome(rng, base, snp)
+            p = tmp / f'{role}{i}.fa'
+            p.write_text(''.join(f'>{role}{i}_{j}\n' + alpha[r].tobytes().decode() + '\n'
+                                 for j, r in enumerate((g[:45_000], g[45_000:]))))
+            paths.append(str(p))
+        lists.append(tmp / f'{role}.txt')
+        lists[-1].write_text('\n'.join(paths) + '\n')
+    return lists
+
+
+def _cpu_cli(monkeypatch):
+    import dataclasses
+
+    from seqwin_tpu_torch import cli
+
+    orig = cli.config_from_args
+    monkeypatch.setattr(cli, 'config_from_args',
+                        lambda args: dataclasses.replace(orig(args), device='cpu'))
+    return cli
+
+
+def test_cli_run_records_every_span(cli_lists, clean_timelines, monkeypatch, tmp_path,
+                                    slow_prep):
+    cli = _cpu_cli(monkeypatch)
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    tar, neg = cli_lists
+    assert cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
+                     '--title', 'spans', '-k', '21', '-w', '50', '--no-blast',
+                     '--sketch-mode', 'device', '-p', '2']) == 0
+    assert (tmp_path / 'spans' / 'signatures.fasta').stat().st_size > 0
+    spans = timeline.spans()
+    by_id = {s.id: s for s in spans}
+    (run,) = [s for s in spans if s.name == 'run']
+    assert run.parent is None and run.attrs == {'title': 'spans'}
+    assert set(SPAN_TABLE) <= {s.name for s in spans}
+    assert all(s.run == run.id for s in spans)
+    phases = [s for s in spans if s.name.startswith('phase.')]
+    assert len(phases) == 4 and all(s.parent == run.id for s in phases)
+    # the markers phase's children; every pool under one of them
+    markers = next(s for s in phases if s.name == 'phase.markers')
+    for name in ('markers.candidates', 'markers.fetch_seq'):
+        assert by_id[next(s for s in spans if s.name == name).parent] is markers
+    assert all(by_id[s.parent].name in ('markers.candidates', 'markers.fetch_seq')
+               for s in spans if s.name.startswith('pool.'))
+    assert all(s.attrs['child_cpu_s'] > 0 for s in spans if s.name == 'pool.stop')
+    fetch = next(s for s in spans if s.name == 'markers.fetch_seq')
+    assert fetch.attrs['assemblies'] >= 1 and fetch.attrs['bytes'] > 0
+    blocks = [s for s in spans if s.name == 'build.blocks']
+    assert len(blocks) == 6 and all(s.attrs['blocks'] >= 2 for s in blocks)
+    assert all(by_id[s.parent].name == 'build.blocks'
+               for s in spans if s.name == 'block.sync')
+    assert next(s for s in spans if s.name == 'run.save_results').attrs['bytes'] > 0
+
+
+def test_spans_share_the_profilers_clock(tmp_path, clean_timelines, monkeypatch):
+    """Every span of the main thread contains its profiler event to within
+    100 us at each end: a build of one record in blocks, where no other
+    thread runs Python beside the main one once the file is parsed (a
+    thread that does can take the interpreter between the two stamps)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    fa = tmp_path / 'long.fa'
+    fa.write_text('>long\n' + np.frombuffer(b'ACGT', np.uint8)[
+        rng.integers(0, 4, size=3 * BUDGET)].tobytes().decode() + '\n')
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timeline.span('warm-up'):  # the profiler's first event of a thread is slow
+            pass
+        timeline.drain_spans()
+        build([fa], K, W, [True], device='cpu')
+    events = _annotations(prof)
+    main = [s for s in timeline.spans() if s.thread == threading.get_native_id()]
+    assert {'build', 'build.blocks', 'block.sync', 'hybrid.host_prep',
+            'build.aggregate'} <= {s.name for s in main}
+    for s in main:
+        _, a, b = min((e for e in events if e[0] == s.name), key=lambda e: abs(e[1] - s.start_ns))
+        assert 0 <= a - s.start_ns <= 100_000 and 0 <= s.end_ns - b <= 100_000, s
+
+
+def test_drain_returns_marks_only(fastas, clean_timelines, monkeypatch):
+    paths, targets = fastas
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    build(paths, K, W, targets, device='cpu')
+    marks = timeline.drain()
+    assert marks and all(len(m) == 3 and m[1] in MARKS for m in marks)
+    assert timeline.drain() == []
+    spans = timeline.spans()
+    assert spans and timeline.spans() == spans  # a copy, nothing cleared
+    assert timeline.drain_spans() == spans and timeline.spans() == []
+    timeline.mark('x')
+    with timeline.span('y'):
+        pass
+    timeline.reset()
+    assert timeline.drain() == [] and timeline.spans() == []
+
+
+def test_profile_dir_trace_holds_pool_thread_spans(cli_lists, clean_timelines, tmp_path):
+    """`Config.profile_dir` switches the recorder on for the run and adds the
+    prep pool's spans, which the profiler does not see, to `trace.json`."""
+    import json
+    import os
+
+    from seqwin_tpu_torch import Config, run
+
+    tar, neg = cli_lists
+    prof = tmp_path / 'prof'
+    run(Config(tar_paths=tar, neg_paths=neg, prefix=tmp_path, title='p', run_mash=False,
+               run_blast=False, n_cpu=2, windowsize=50, device='cpu', profile_dir=prof))
+    assert not timeline.enabled()  # off again after the run
+    doc = json.loads((prof / 'trace.json').read_text())
+    pid = os.getpid()
+    preps = [e for e in doc['traceEvents'] if e.get('name') == 'hybrid.host_prep']
+    assert preps and all(e['pid'] == pid and e['tid'] != pid and e['dur'] > 0 for e in preps)
+    names = {e['args']['name'] for e in doc['traceEvents']
+             if e.get('ph') == 'M' and e.get('name') == 'thread_name' and e.get('pid') == pid}
+    assert any(n.endswith('(seqwin spans)') for n in names)
+    # the main thread's spans are the profiler's own events, on the same time base
+    agg = [e for e in doc['traceEvents'] if e.get('name') == 'build.aggregate']
+    assert len(agg) == 1 and agg[0]['tid'] == pid
+    assert min(e['ts'] for e in preps) < agg[0]['ts']
+    log = (tmp_path / 'p' / 'seqwin.log').read_text()
+    assert ' - Device busy 0.000 ms' in log
