@@ -1,6 +1,7 @@
 """Minimal insertion-ordered undirected graph + k-mer ordering helpers.
 
-Counterpart: `seqwin_tpu/graph/hashgraph.py` (a copy).
+Counterpart: `seqwin_tpu/graph/hashgraph.py` (a copy, with `subgraph`'s
+``order`` added).
 
 `HashGraph` is a deliberate, dependency-free stand-in for the small slice of
 networkx behavior the marker pipeline depends on. Output bit-exactness
@@ -61,13 +62,20 @@ class HashGraph:
         # self-loop counts twice, matching networkx
         return len(self._adj[n]) + (1 if n in self._adj[n] else 0)
 
-    def subgraph(self, nbunch) -> 'HashGraph':
-        keep = set(nbunch)
+    def subgraph(self, nbunch, order: dict | None = None) -> 'HashGraph':
+        """The subgraph induced by the nodes of ``nbunch`` that are in the
+        graph, in the parent's node and neighbour orders. ``order`` maps every
+        node to its insertion rank (``{n: i for i, n in enumerate(graph)}``,
+        built here when not given): a caller cutting many subgraphs passes
+        one map, so each costs its own nodes' degrees, not the whole graph."""
+        adj = self._adj
+        if order is None:
+            order = {n: i for i, n in enumerate(adj)}
+        keep = {n for n in nbunch if n in adj}
         g = HashGraph.__new__(HashGraph)
         g._adj = {
-            n: {m: None for m in nbrs if m in keep}
-            for n, nbrs in self._adj.items()
-            if n in keep
+            n: {m: None for m in adj[n] if m in keep}
+            for n in sorted(keep, key=order.__getitem__)
         }
         return g
 

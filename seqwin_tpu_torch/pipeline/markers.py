@@ -9,9 +9,10 @@ docstrings. BLAST tables are dicts of numpy columns (`ncbi.Table`), and
 
 Spans (`engine/timeline.py`): ``phase.markers`` over the phase's timer,
 holding ``markers.candidates`` (the subgraphs' arguments built,
-``markers.candidate_args``, and the candidates made in forked workers) and
-``markers.fetch_seq`` (the representatives cut from re-read FASTAs);
-``markers.write`` for the two output files.
+``markers.candidate_args`` with ``nodes``, the subgraphs' nodes, and
+``graph_nodes``, the kept graph's, and the candidates made in forked
+workers) and ``markers.fetch_seq`` (the representatives cut from re-read
+FASTAs); ``markers.write`` for the two output files.
 """
 from __future__ import annotations
 
@@ -238,7 +239,9 @@ def _create_ck(graph, kmer_rows, kmerlen, windowsize, n_tar):
 
 def _get_create_ck_args(kg: KmerGraph, n_tar: int, kmerlen: int, windowsize: int):
     """Yield per-subgraph args (node order is the frozenset iteration order;
-    k-mer groups concatenated in that order)."""
+    k-mer groups concatenated in that order). Each subgraph's graph is cut
+    from its own nodes by the kept graph's node ranks, so the whole costs
+    the subgraphs' size, not their number times the graph's."""
     kmers = kg.kmers
     nodes = kg.nodes
     graph = kg.graph
@@ -249,8 +252,9 @@ def _get_create_ck_args(kg: KmerGraph, n_tar: int, kmerlen: int, windowsize: int
         h, start, stop = int(node['hash']), int(node['start']), int(node['stop'])
         kmer_groups[h] = kmers[start:stop]
 
+    order = {n: i for i, n in enumerate(graph)}
     for sg in kg.subgraphs:
-        arg_graph = graph.subgraph(sg)
+        arg_graph = graph.subgraph(sg, order)
         arg_nodes = tuple(sg)
         groups = [kmer_groups.pop(int(h)) for h in arg_nodes]
         n_rows = sum(len(g) for g in groups)
@@ -301,7 +305,9 @@ def _get_cks(
         logger.info(' - Processing each subgraph...')
         with timeline.span('markers.candidates', subgraphs=len(kmers.subgraphs)) as s:
             # a list, as `Pool.starmap` makes of an iterable without a length
-            with timeline.span('markers.candidate_args'):
+            with timeline.span('markers.candidate_args') as a:
+                if a:
+                    a.set(nodes=sum(map(len, kmers.subgraphs)), graph_nodes=len(kmers.graph))
                 args = list(_get_create_ck_args(kmers, n_tar, kmerlen, windowsize))
             all_cks: list[ConnectedKmers] = pool_map(
                 _create_ck, args, processes=n_cpu, total=len(args))

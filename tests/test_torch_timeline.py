@@ -255,6 +255,11 @@ def test_cli_run_records_every_span(cli_lists, clean_timelines, monkeypatch, tmp
     assert all(s.attrs['child_cpu_s'] > 0 for s in spans if s.name == 'pool.stop')
     fetch = next(s for s in spans if s.name == 'markers.fetch_seq')
     assert fetch.attrs['assemblies'] >= 1 and fetch.attrs['bytes'] > 0
+    # the nodes handed to the workers, out of the kept graph's
+    cands = next(s for s in spans if s.name == 'markers.candidates')
+    args = next(s for s in spans if s.name == 'markers.candidate_args')
+    assert by_id[args.parent] is cands
+    assert 2 * cands.attrs['subgraphs'] <= args.attrs['nodes'] <= args.attrs['graph_nodes']
     blocks = [s for s in spans if s.name == 'build.blocks']
     assert len(blocks) == 6 and all(s.attrs['blocks'] >= 2 for s in blocks)
     assert all(by_id[s.parent].name == 'build.blocks'
