@@ -8,6 +8,11 @@ pairwise Jaccard indices:
 2. Bottom-k MinHash sketches computed with torch ops on the run's device
    (`device_sketches` + `sketch_jaccard_matrix`, ``--sketch-mode device``):
    one stream per assembly, its records joined by runs of 255 separators.
+
+Spans (`engine/timeline.py`), one each per assembly: ``sketch.join`` (the
+host join of its records into the stream and the copy to the device;
+``records``, ``bytes``) and ``sketch.fetch`` (the bottom-k selection and the
+read of the sketch to the host: the host's wait on the device).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .engine import timeline
 from .engine.minimizer import canon_hashes
 from .engine.phase1 import _window_any
 from .ncbi import Table, read_tsv
@@ -165,6 +171,12 @@ def _separator_run(seed_pattern: str | None) -> int:
     return max_gap + 1
 
 
+def stream_bases(records: list[np.ndarray], seed_pattern: str | None = None) -> int:
+    """Positions of one assembly's stream: its records and the separator
+    runs between them (one uint8 code each)."""
+    return sum(len(c) for c in records) + max(0, len(records) - 1) * _separator_run(seed_pattern)
+
+
 def device_sketches(
     record_codes_by_assembly: list[list[np.ndarray]],
     kmerlen: int,
@@ -186,20 +198,28 @@ def device_sketches(
     sep = _separator_run(seed_pattern)
     sketches = []
     for recs in record_codes_by_assembly:
-        n = sum(len(c) for c in recs) + max(0, len(recs) - 1) * sep
+        n = stream_bases(recs, seed_pattern)
         if n == 0:
             sketches.append(np.zeros(0, np.uint64))
             continue
-        stream = np.full(n, 255, dtype=np.uint8)
-        off = 0
-        for c in recs:
-            stream[off:off + len(c)] = c
-            off += len(c) + sep
-        codes = torch.from_numpy(stream).to(dev)
+        with timeline.span('sketch.join', records=len(recs), bytes=n):
+            stream = np.full(n, 255, dtype=np.uint8)
+            off = 0
+            for c in recs:
+                stream[off:off + len(c)] = c
+                off += len(c) + sep
+            codes = torch.from_numpy(stream).to(dev)
         hashes = (_contiguous_canon(codes, kmerlen) if seed_pattern is None
                   else spaced_canon(codes, seed_pattern))
-        sketches.append(u64.to_numpy(_bottom_k_tail(*hashes, sketchsize)))
+        with timeline.span('sketch.fetch'):
+            sketches.append(u64.to_numpy(_bottom_k_tail(*hashes, sketchsize)))
     return sketches
+
+
+def pair_block(sketchsize: int) -> int:
+    """Sketch pairs a `_pair_jaccard` call takes in `sketch_jaccard_matrix`:
+    at most 2^24 keys."""
+    return max(1, (1 << 24) // (2 * sketchsize))
 
 
 def _pair_jaccard(S: torch.Tensor, ii: torch.Tensor, jj: torch.Tensor, s: int) -> torch.Tensor:
@@ -231,7 +251,7 @@ def sketch_jaccard_matrix(sketches: list[np.ndarray], sketchsize: int, device=No
         S[i, :m] = np.asarray(sk[:m], dtype=np.uint64).view(np.int64) ^ np.int64(u64.SIGN)
     S_dev = torch.from_numpy(S).to(dev)
     iu, ju = np.triu_indices(n)
-    block = max(1, (1 << 24) // (2 * sketchsize))
+    block = pair_block(sketchsize)
     for lo in range(0, len(iu), block):
         sel = slice(lo, lo + block)
         vals = _pair_jaccard(S_dev, torch.from_numpy(iu[sel]).to(dev),

@@ -13,10 +13,13 @@ handle is released, so the forked marker workers never meet a tensor and
 the pickled run holds none.
 
 Spans (`engine/timeline.py`): ``phase.build_graph``, ``phase.threshold``
-(with ``threshold.sketches`` around the device sketches) and
-``phase.subgraphs`` (with ``subgraphs.edges``, the edge filter and the
-adjacency, ``subgraphs.search`` and ``subgraphs.compact``, the kept
-k-mers), each phase over the interval its ``Finished in`` timer measures.
+(with ``threshold.sketches`` around the device sketches, its ``bases``
+hashed and ``h2d_bytes`` copied, separators included, and
+``threshold.jaccard`` around their Jaccard matrix, its ``pairs`` and
+``blocks``) and ``phase.subgraphs`` (with ``subgraphs.edges``, the edge
+filter and the adjacency, ``subgraphs.search`` and ``subgraphs.compact``,
+the kept k-mers), each phase over the interval its ``Finished in`` timer
+measures.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ..engine.aggregate import HostGraph
 from ..graph import HashGraph
 from ..graph.build import build_deferred, kept_node_layout
 from ..io.fasta import iter_assemblies
-from ..mash import device_sketches, sketch_jaccard_matrix
+from ..mash import device_sketches, pair_block, sketch_jaccard_matrix, stream_bases
 from ..utils import log_elapsed
 from .subgraphs import get_subgraphs
 
@@ -241,10 +244,16 @@ def _device_jaccard(assemblies: Assemblies, config: Config, records=None) -> NDA
     if records is None:
         records = [codes for _, codes in iter_assemblies([str(p) for p in assemblies.path],
                                                            config.n_cpu)]
-    with timeline.span('threshold.sketches', assemblies=len(records)):
+    with timeline.span('threshold.sketches', assemblies=len(records)) as span:
         sketches = device_sketches(records, config.kmerlen, config.sketchsize,
                                    seed_pattern=config.seed_pattern, device=device)
-    return sketch_jaccard_matrix(sketches, config.sketchsize, device=device)
+        if span:
+            bases = sum(stream_bases(recs, config.seed_pattern) for recs in records)
+            span.set(bases=bases, h2d_bytes=bases)  # one uint8 code a position
+    pairs = len(sketches) * (len(sketches) + 1) // 2
+    with timeline.span('threshold.jaccard', pairs=pairs,
+                       blocks=-(-pairs // pair_block(config.sketchsize))):
+        return sketch_jaccard_matrix(sketches, config.sketchsize, device=device)
 
 
 def _expected_frac(jaccard_mtx: NDArray) -> np.floating:

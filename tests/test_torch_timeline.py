@@ -117,7 +117,8 @@ SPAN_TABLE = (
     'phase.build_graph', 'phase.threshold', 'phase.subgraphs', 'phase.markers',
     'build', 'io.parse', 'build.ingest_wait', 'hybrid.host_prep', 'build.prep_wait',
     'build.dispatch', 'build.blocks', 'block.sync', 'build.counts_fetch', 'build.aggregate',
-    'threshold.sketches', 'subgraphs.edges', 'subgraphs.search', 'subgraphs.compact',
+    'threshold.sketches', 'sketch.join', 'sketch.fetch', 'threshold.jaccard',
+    'subgraphs.edges', 'subgraphs.search', 'subgraphs.compact',
     'markers.candidates', 'markers.candidate_args', 'markers.fetch_seq', 'markers.write',
     'pool.start', 'pool.map', 'pool.stop',
 )
@@ -265,6 +266,38 @@ def test_cli_run_records_every_span(cli_lists, clean_timelines, monkeypatch, tmp
     assert all(by_id[s.parent].name == 'build.blocks'
                for s in spans if s.name == 'block.sync')
     assert next(s for s in spans if s.name == 'run.save_results').attrs['bytes'] > 0
+
+
+@pytest.mark.parametrize('recording', [True, False])
+def test_sketch_spans(cli_lists, clean_timelines, monkeypatch, tmp_path, recording):
+    """A ``--sketch-mode device`` run: one ``sketch.join`` and one
+    ``sketch.fetch`` an assembly inside ``threshold.sketches``, then
+    ``threshold.jaccard``, with their attributes; nothing when off."""
+    cli = _cpu_cli(monkeypatch)
+    if recording:
+        monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    tar, neg = cli_lists
+    assert cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
+                     '--title', 'sketch', '-k', '21', '-w', '50', '--no-blast',
+                     '--sketch-mode', 'device', '-p', '2']) == 0
+    spans = timeline.spans()
+    if not recording:
+        assert spans == [] and timeline.drain() == []
+        return
+    by_id = {s.id: s for s in spans}
+    (sketches,) = [s for s in spans if s.name == 'threshold.sketches']
+    (jaccard,) = [s for s in spans if s.name == 'threshold.jaccard']
+    assert by_id[sketches.parent].name == by_id[jaccard.parent].name == 'phase.threshold'
+    assert sketches.end_ns <= jaccard.start_ns
+    joins = [s for s in spans if s.name == 'sketch.join']
+    fetches = [s for s in spans if s.name == 'sketch.fetch']
+    assert len(joins) == len(fetches) == sketches.attrs['assemblies'] == 6
+    assert all(s.parent == sketches.id for s in joins + fetches)
+    # six assemblies of two records (45 and 15 kbp), one separator between
+    assert [s.attrs for s in joins] == [{'records': 2, 'bytes': 60_001}] * 6
+    assert sketches.attrs == {'assemblies': 6, 'bases': 6 * 60_001, 'h2d_bytes': 6 * 60_001}
+    assert fetches[0].attrs == {}
+    assert jaccard.attrs == {'pairs': 21, 'blocks': 1}
 
 
 def test_spans_share_the_profilers_clock(tmp_path, clean_timelines, monkeypatch):
