@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 1. Environment and build: the card's name and power limit, the shard
    devices D of the multi-device build (every card when there are several,
    else four shards on card 0), then the package's CUDA kernels (B1
-   `phase1_z`, B2 `phase1_zc`, B3 `phase1_pfx`, one source) built with nvcc
+   `phase1_z`, B2 `phase1_zc`, B3 `phase1_pfx` from ``phase1.cu``;
+   `sketch_cut` and `sketch_select` from ``sketch.cu``) built with nvcc
    from ``seqwin_tpu_torch/csrc``.
 2. Each kernel against its plain torch version on the card, on seeded
    streams with N runs, short and empty records and small-k tie cases over a
@@ -76,13 +77,20 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 7. Device MinHash sketches (``--sketch-mode device``). (1) `cli.main
    --sketch-mode device` on the card on phase 5's reduced proxy, plain and
    with ``--seed-pattern``, each against the port's CPU run with the same
-   options: signatures.fasta, signatures.csv and assemblies.csv byte-equal.
+   options: signatures.fasta, signatures.csv and assemblies.csv byte-equal;
+   the plain run launches `sketch_cut` once per chunk of the cut path's
+   plan and `sketch_select` once, the seed-pattern run neither.
    (2) The same option on the 804 Mbp proxy (phase 5's data): wall time,
    `Finished in` seconds, the threshold it computed against the minimizer
-   estimate of phase 5's run, B1 once per chunk; then the sketches of all
-   171 assemblies and their Jaccard matrix timed alone, and the card's
+   estimate of phase 5's run, B1 once per chunk, `sketch_cut` once per
+   chunk of the plan and `sketch_select` once; then the sketches of all
+   171 assemblies and their Jaccard matrix timed alone, with the same
+   launches and no assembly redone on the torch path, and the card's
    sketches of three assemblies and the whole matrix equal to the CPU's
-   (``--profile``: the sketches traced once more). (3)
+   (``--profile``: the sketches traced once more); then `sketch_cut` on
+   each of the plan's chunks and `sketch_select` on its candidates against
+   their plain versions on the card (equal counters, kept-value sets and
+   rows), each timed with CUDA events against its bound. (3)
    `build_distributed(..., keep_codes=True)` over D on the reduced proxy,
    its kept codes equal to the parse.
 8. The multi-host build: two OS processes on the card, ranks of one gloo
@@ -93,7 +101,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    of the arrays), B2 and B3 once per batch in which a process holds
    bases. (2) The reduced CLI (phase 5) in both processes, each with its
    own --prefix, plain and with ``--sketch-mode device``: its files
-   byte-equal to the single-process runs. Seconds and launches per
+   byte-equal to the single-process runs, the sketch run's `sketch_cut`
+   and `sketch_select` launches those of phase 7's. Seconds and launches per
    process; ``--profile`` traces one more build in each (device busy, host
    spans).
 9. The fused one-program build (``SEQWIN_TPU_TORCH_FUSED=1``,
@@ -147,6 +156,9 @@ SMS = 132                      # H100 SXM
 # fwd/rev hash, canonical add, validity, prefix/suffix argmin and combine,
 # clean, z); the count is derived in the header of csrc/phase1.cu
 OPS_PER_POS = {'phase1_z': 50, 'phase1_zc': 50, 'phase1_pfx': 54}
+PHASE1_KERNELS = ('phase1_z', 'phase1_zc', 'phase1_pfx')
+SKETCH_KERNELS = ('sketch_cut', 'sketch_select')
+SKETCH_SIZE = 1000                # the sketch size of phase 7's runs (the CLI's default)
 
 
 def log(*a):
@@ -281,15 +293,19 @@ def edge_stream(rng, n_tiles: int, tile: int, k: int, w: int) -> np.ndarray:
 
 
 def phase_build():
+    from seqwin_tpu_torch import mash
     from seqwin_tpu_torch.engine import _kernels, phase1
 
-    t0 = time.perf_counter()
-    phase1._lib()
-    log(f'[build] phase1 (kernels B1, B2, B3) built and loaded in {time.perf_counter() - t0:.2f} s')
-    txt = _kernels.BUILD_DIR / 'phase1.ptxas.txt'
-    if txt.exists():
-        log('[build] ptxas phase1: ' + ' | '.join(
-            ln.strip() for ln in txt.read_text().splitlines() if 'Used' in ln or 'spill' in ln))
+    for src, lib, names in (('phase1', phase1._lib, 'B1, B2, B3'),
+                            ('sketch', mash._lib, 'sketch_cut, sketch_select')):
+        t0 = time.perf_counter()
+        lib()
+        log(f'[build] {src} (kernels {names}) built and loaded in '
+            f'{time.perf_counter() - t0:.2f} s')
+        txt = _kernels.BUILD_DIR / f'{src}.ptxas.txt'
+        if txt.exists():
+            log(f'[build] ptxas {src}: ' + ' | '.join(
+                ln.strip() for ln in txt.read_text().splitlines() if 'Used' in ln or 'spill' in ln))
 
 
 def _kernel_specs():
@@ -429,9 +445,27 @@ def phase_kernels(seed: int, shard_codes) -> list[dict]:
 
 
 def launch_counters():
+    """The launch counter of each of the package's kernels, by name."""
+    from seqwin_tpu_torch import mash
     from seqwin_tpu_torch.engine import phase1
 
-    return {name: getattr(phase1, name) for name in ('phase1_z', 'phase1_zc', 'phase1_pfx')}
+    return {**{name: getattr(phase1, name) for name in PHASE1_KERNELS},
+            **{name: getattr(mash, name) for name in SKETCH_KERNELS}}
+
+
+def want_launches(b1: int, b2: int, b3: int, cut: int = 0, select: int = 0) -> dict:
+    """The `read_launches` of a run that launches B1, B2, B3, `sketch_cut`
+    and `sketch_select` so many times."""
+    return dict(zip(PHASE1_KERNELS + SKETCH_KERNELS, (b1, b2, b3, cut, select)))
+
+
+def expected_cuts(records_by_assembly) -> int:
+    """`sketch_cut` launches of the cut path's sketches of these
+    assemblies: one a chunk of `mash.chunk_plan` that holds a position."""
+    from seqwin_tpu_torch import mash
+
+    lengths = [mash.stream_bases(r) for r in records_by_assembly]
+    return sum(any(lengths[a0:a1]) for a0, a1 in mash.chunk_plan(lengths, mash.CHUNK_BASES))
 
 
 def read_launches() -> dict:
@@ -679,7 +713,7 @@ def phase_fused_small(paths, targets, per_chunk) -> dict:
         _assert_same_build(f'fused ({label}) vs per-chunk build, 8 x 1 Mbp', got, want)
         b1 = (expected_groups(records, DEFAULT_CHUNK_BASES) if budget is None
               else expected_scans(records, budget))
-        if launches != {'phase1_z': b1, 'phase1_zc': 0, 'phase1_pfx': 0}:
+        if launches != want_launches(b1, 0, 0):
             raise AssertionError(f'fused ({label}) launches {launches}, expected B1 = {b1}')
         if counters['fused_fallbacks'] != (budget is not None):
             raise AssertionError(f"fused ({label}): {counters['fused_fallbacks']} fallbacks")
@@ -729,7 +763,7 @@ def phase_fused_main(paths, targets, single, card: str) -> dict:
         del got
         if label == 'fused':
             launches = read_launches()
-            if launches != {'phase1_z': groups, 'phase1_zc': 0, 'phase1_pfx': 0}:
+            if launches != want_launches(groups, 0, 0):
                 raise AssertionError(f'192 Mbp fused launches {launches}, expected B1 = {groups}')
     log(f"[phase9 fused] 192 Mbp graph.build: fused byte-equal to per-chunk; seconds in turns "
         f"per-chunk {secs['per_chunk'][0]:.3f}, fused {secs['fused'][0]:.3f}, "
@@ -793,7 +827,7 @@ def phase_fused_pipeline(td: Path, pipe: dict, card: str) -> dict:
     differ = _differing(td / 'e2e', td / 'e2e_fused', FILES)
     if differ:
         raise AssertionError(f'804 Mbp fused CLI and the per-chunk run differ in {differ}')
-    if launches != {'phase1_z': groups, 'phase1_zc': 0, 'phase1_pfx': 0}:
+    if launches != want_launches(groups, 0, 0):
         raise AssertionError(f'804 Mbp fused CLI launches {launches}, expected B1 = {groups}')
     res = dict(wall_s=wall, phases_s=log_phases(td / 'e2e_fused' / 'seqwin.log'),
                peak_bytes=peak, launches=launches, groups=groups)
@@ -869,7 +903,7 @@ def phase_small(seed: int, devices):
     kmers, edges = graph.materialize()
     _assert_same_build('multi-device vs single-device build',
                        (kmers, graph.nodes, edges, offsets, ids), gpu)
-    want = {'phase1_z': 0, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}
+    want = want_launches(0, graph.n_chunks, graph.n_chunks)
     if grew != want or not graph.n_chunks:
         raise AssertionError(f'multi-device launches {grew}, expected {want}')
     log(f'[multi-vs-single] 8 x 1 Mbp over {len(devices)} shards {[str(d) for d in devices]}: '
@@ -1045,8 +1079,8 @@ def phase_main(paths, targets, profile: bool, card: str, devices, td: Path) -> d
         graph = run['graph']
         full_edges = check_main_run(run)
         chunks = graph.n_chunks
-        want = ({'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0} if label == 'single'
-                else {'phase1_z': 0, 'phase1_zc': chunks, 'phase1_pfx': chunks})
+        want = (want_launches(chunks, 0, 0) if label == 'single'
+                else want_launches(0, chunks, chunks))
         if launches != want or not chunks:
             raise AssertionError(f'{label} main path launches {launches}, expected {want}')
         out[label] = dict(
@@ -1295,7 +1329,7 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
         launches = read_launches()
         if rc != 0:
             raise AssertionError(f'cli.main exited {rc} ({title})')
-        want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+        want = want_launches(chunks, 0, 0)
         if launches != want:
             raise AssertionError(f'pipeline launches {launches}, expected {want}')
         out_dir = td / title
@@ -1372,8 +1406,7 @@ def phase_low_memory_cli(seed: int, profile: bool, card: str) -> dict:
             launches = read_launches()
             if rc != 0:
                 raise AssertionError(f'cli.main exited {rc} ({title})')
-            want = {'phase1_z': want_b1[title.removesuffix('_traced')], 'phase1_zc': 0,
-                    'phase1_pfx': 0}
+            want = want_launches(want_b1[title.removesuffix('_traced')], 0, 0)
             if launches != want:
                 raise AssertionError(f'{title} complete-genome run launches {launches}, expected {want}')
             busy = re.search(r'Device busy ([\d.]+) ms', (td / title / 'seqwin.log').read_text())
@@ -1437,8 +1470,7 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
                 launches = read_launches()
             finally:
                 os.environ.pop('SEQWIN_TPU_TORCH_CHUNK_BASES', None)
-            want = {'phase1_z': expected_scans(records, budget or DEFAULT_CHUNK_BASES),
-                    'phase1_zc': 0, 'phase1_pfx': 0}
+            want = want_launches(expected_scans(records, budget or DEFAULT_CHUNK_BASES), 0, 0)
             if launches != want:
                 raise AssertionError(f'long record ({label}) launches {launches}, expected {want}')
             runs[label] = dict(secs=secs, launches=launches)
@@ -1448,7 +1480,7 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
         secs = time.perf_counter() - t0
         launches = read_launches()
         kmers, edges = graph.materialize()
-        want = {'phase1_z': n_blocks, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}
+        want = want_launches(n_blocks, graph.n_chunks, graph.n_chunks)
         if launches != want or not graph.n_chunks:
             raise AssertionError(f'sequence-sharded long record launches {launches}, expected {want}')
         runs['sharded'] = dict(secs=secs, launches=launches)
@@ -1499,7 +1531,7 @@ def phase_multi_low_memory(paths, targets, devices, single) -> dict:
     kmers, edges = graph.materialize()
     _assert_same_build('multi-device low memory vs single-device build',
                        (kmers, graph.nodes, edges, offsets, ids), single)
-    want = {'phase1_z': 0, 'phase1_zc': shards, 'phase1_pfx': shards}
+    want = want_launches(0, shards, shards)
     if launches != want or graph.n_chunks != shards:
         raise AssertionError(f'multi-device low memory launches {launches}, expected {want}')
     log(f'[phase6 multi-low-memory] 192 Mbp over {[str(d) for d in devices]} with low_memory: '
@@ -1543,6 +1575,7 @@ def phase_sketch_reduced(lists: dict, rec_lens, td: Path, devices, card: str) ->
     common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
               '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8', '--sketch-mode', 'device']
     chunks = expected_chunks(rec_lens)
+    cuts = expected_cuts(parse_assemblies(list_paths(lists)))
     out = {}
     for label, pattern in (('sketch', None), ('sketch_seed', SEED_PATTERN)):
         extra = ['--seed-pattern', pattern] if pattern else []
@@ -1554,7 +1587,9 @@ def phase_sketch_reduced(lists: dict, rec_lens, td: Path, devices, card: str) ->
         launches = read_launches()
         if rc != 0:
             raise AssertionError(f'cli.main --sketch-mode device ({label}) exited {rc}')
-        want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+        # contiguous k-mers take the cut (one sketch_cut a chunk, one
+        # sketch_select a job); a seed pattern the torch path
+        want = want_launches(chunks, 0, 0, *((cuts, 1) if pattern is None else (0, 0)))
         if launches != want:
             raise AssertionError(f'{label} reduced CLI launches {launches}, expected {want}')
         t0 = time.perf_counter()
@@ -1588,7 +1623,7 @@ def phase_sketch_reduced(lists: dict, rec_lens, td: Path, devices, card: str) ->
                                      for a, b in zip(g, w))
             for g, w in zip(graph.record_codes, want)):
         raise AssertionError('build_distributed(keep_codes=True): kept codes differ from the parse')
-    if launches != {'phase1_z': 0, 'phase1_zc': graph.n_chunks, 'phase1_pfx': graph.n_chunks}:
+    if launches != want_launches(0, graph.n_chunks, graph.n_chunks):
         raise AssertionError(f'build_distributed(keep_codes=True) launches {launches}')
     out['keep_codes'] = dict(secs=secs, launches=launches)
     log(f'[phase7 keep-codes] 24 x 1 Mbp build_distributed(keep_codes=True) over '
@@ -1611,6 +1646,8 @@ def phase_sketch_full(td: Path, pipe: dict, card: str, profile: bool) -> dict:
     from seqwin_tpu_torch.mash import device_sketches, sketch_jaccard_matrix
 
     lists, chunks = pipe['lists'], pipe['chunks']
+    records = parse_assemblies(list_paths(lists))
+    cuts = expected_cuts(records)
     reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
@@ -1621,7 +1658,7 @@ def phase_sketch_full(td: Path, pipe: dict, card: str, profile: bool) -> dict:
     launches = read_launches()
     if rc != 0:
         raise AssertionError(f'cli.main --sketch-mode device exited {rc} (804 Mbp)')
-    want = {'phase1_z': chunks, 'phase1_zc': 0, 'phase1_pfx': 0}
+    want = want_launches(chunks, 0, 0, cuts, 1)
     if launches != want:
         raise AssertionError(f'804 Mbp --sketch-mode device launches {launches}, expected {want}')
     log_file = td / 'e2e_sketch' / 'seqwin.log'
@@ -1636,38 +1673,137 @@ def phase_sketch_full(td: Path, pipe: dict, card: str, profile: bool) -> dict:
         f"{json.dumps(res['minimizer_phases_s'])}); {n_sig} signatures; launches {launches}; "
         f'on {card}')
 
-    records = parse_assemblies(list_paths(lists))
     torch.cuda.synchronize()
+    reset_launches()
+    cut = {}
     t0 = time.perf_counter()
-    sketches = device_sketches(records, K, 1000, device='cuda')
+    sketches = device_sketches(records, K, SKETCH_SIZE, device='cuda', stats=cut)
     res['sketches_s'] = time.perf_counter() - t0
+    res['sketch_launches'] = read_launches()
+    res.update(cut)
+    if res['sketch_launches'] != want_launches(0, 0, 0, cuts, 1):
+        raise AssertionError(f"804 Mbp sketches launches {res['sketch_launches']}, expected "
+                             f'{cuts} sketch_cut and 1 sketch_select')
+    if cut.get('fallbacks') != 0:
+        raise AssertionError(f'804 Mbp sketches: the cut redid {cut.get("fallbacks")} assemblies '
+                             'on the torch path (expected none)')
     t0 = time.perf_counter()
-    mtx = sketch_jaccard_matrix(sketches, 1000, device='cuda')
+    mtx = sketch_jaccard_matrix(sketches, SKETCH_SIZE, device='cuda')
     res['matrix_s'] = time.perf_counter() - t0
-    if any(len(s) != 1000 for s in sketches):
-        raise AssertionError('804 Mbp sketches: an assembly with fewer than 1000 distinct hashes')
+    if any(len(s) != SKETCH_SIZE for s in sketches):
+        raise AssertionError('804 Mbp sketches: an assembly with fewer distinct hashes than the size')
     for i in SKETCHES_HELD:
-        cpu = device_sketches(records[i:i + 1], K, 1000, device='cpu')[0]
+        cpu = device_sketches(records[i:i + 1], K, SKETCH_SIZE, device='cpu')[0]
         if cpu.dtype != sketches[i].dtype or not np.array_equal(cpu, sketches[i]):
             raise AssertionError(f'804 Mbp sketches: assembly {i} differs between card and CPU')
-    if not np.array_equal(sketch_jaccard_matrix(sketches, 1000, device='cpu'), mtx):
+    if not np.array_equal(sketch_jaccard_matrix(sketches, SKETCH_SIZE, device='cpu'), mtx):
         raise AssertionError('804 Mbp Jaccard matrix differs between card and CPU')
     n = len(records)
     log(f"[phase7 sketch] {n} assemblies, {sum(len(c) for r in records for c in r)} bases: "
         f"sketches on the card {res['sketches_s']:.3f} s ({res['sketches_s'] / n * 1e3:.2f} ms "
         f"per assembly), Jaccard matrix {n} x {n} {res['matrix_s']:.3f} s (float64); sketches "
-        f'of assemblies {list(SKETCHES_HELD)} and the whole matrix equal to the CPU; on {card}')
+        f'of assemblies {list(SKETCHES_HELD)} and the whole matrix equal to the CPU; cut '
+        f"{res['candidates']} candidates, {res['fallbacks']} fallbacks, launches "
+        f"{res['sketch_launches']}; on {card}")
+    res['kernels'] = phase_sketch_kernels(records, card)
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprof
 
         with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            device_sketches(records, K, 1000, device='cuda')
+            device_sketches(records, K, SKETCH_SIZE, device='cuda')
             torch.cuda.synchronize()
         avg = prof.key_averages()
         log(avg.table(sort_by='cuda_time_total', row_limit=12))
         res['sketches_device_busy_ms'] = device_busy_ms(avg)
         log(f"[phase7 profile] sketches of {n} assemblies traced: device busy "
             f"{res['sketches_device_busy_ms']:.3f} ms")
+    return res
+
+
+def phase_sketch_kernels(records, card: str) -> list[dict]:
+    """Phase 7 (2), the sketch kernels alone on the 804 Mbp proxy's
+    assemblies (``records``), chunked as `mash.cut_sketches` chunks them:
+    `sketch_cut` against `sketch_cut_plain` on every chunk (equal counters,
+    equal sets of kept values), `sketch_select` against
+    `sketch_select_plain` on the kernel's candidates (equal rows), both
+    versions on the card; each kernel timed with CUDA events (`sketch_cut`
+    summed over the chunks, each launch after a reset of its counters),
+    against its bound: `portbench/sketch_peaks.py`'s for `sketch_cut` (the
+    whole estimator's least work over the records' bases), and for
+    `sketch_select`, which that bound leaves out, its candidates read and
+    its rows written once at the memory rate."""
+    import torch
+
+    from portbench.peaks import HBM_BYTES_PER_S as PEAK_BYTES_PER_S
+    from portbench.sketch_peaks import sketch_bound_s
+    from seqwin_tpu_torch import mash
+
+    dev = torch.device('cuda')
+    lengths = [mash.stream_bases(r) for r in records]
+    n_asm, plan = len(lengths), mash.chunk_plan(lengths, mash.CHUNK_BASES)
+    rows = mash.cut_rows(lengths, plan, SKETCH_SIZE)
+    rows_dev = torch.from_numpy(rows).to(dev)
+    cap = mash.cand_cap(SKETCH_SIZE)
+    counts, counts_p, scratch = (torch.zeros(n_asm, dtype=torch.int32, device=dev)
+                                 for _ in range(3))
+    cand, cand_p, cand_t = (torch.full((n_asm * cap,), -1, dtype=torch.int64, device=dev)
+                            for _ in range(3))
+    cut_ms = plain_ms = 0.0
+    for a0, a1 in plan:
+        buf = np.empty(int(rows[a1 - 1, 0] + rows[a1 - 1, 1]), np.uint8)
+        mash.stage_chunk(buf, records[a0:a1], rows[a0:a1, 0])
+        codes = torch.from_numpy(buf).to(dev)
+        blocks = int(rows[a1 - 1, 2]) + -(-lengths[a1 - 1] // mash.CUT_TILE)
+        part = slice(a0 * cap, a1 * cap)
+        mash.sketch_cut(codes, rows_dev[a0:a1], K, cand[part], counts[a0:a1], cap, blocks)
+
+        def launch():
+            scratch[a0:a1].zero_()
+            mash.sketch_cut(codes, rows_dev[a0:a1], K, cand_t[part], scratch[a0:a1], cap, blocks)
+
+        cut_ms += cuda_ms(launch, iters=5)
+        plain_ms += cuda_ms(lambda: mash.sketch_cut_plain(
+            codes, rows_dev[a0:a1], K, cand_p[part], counts_p[a0:a1].zero_(), cap),
+            iters=1, warmup=0)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, counts_p):
+        bad = torch.nonzero(counts != counts_p).flatten().tolist()
+        raise AssertionError(f'sketch_cut: counters differ from the plain version at {bad[:8]}')
+    kept, kept_p = cand.view(n_asm, cap), cand_p.view(n_asm, cap)
+    for a, c in enumerate(counts.tolist()):
+        m = min(c, cap)
+        if not torch.equal(torch.sort(kept[a, :m]).values, torch.sort(kept_p[a, :m]).values):
+            raise AssertionError(f'sketch_cut: assembly {a} kept other values than the plain version')
+    out = mash.sketch_select(cand, counts, cap, SKETCH_SIZE)
+    out_p = mash.sketch_select_plain(cand, counts, cap, SKETCH_SIZE)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out_p):
+        raise AssertionError('sketch_select: rows differ from the plain version')
+    select_ms = cuda_ms(lambda: mash.sketch_select(cand, counts, cap, SKETCH_SIZE), iters=20)
+    select_plain_ms = cuda_ms(lambda: mash.sketch_select_plain(cand, counts, cap, SKETCH_SIZE),
+                              iters=1, warmup=0)
+    bases = sum(len(c) for r in records for c in r)
+    n = int(sum(rows[a1 - 1, 0] + rows[a1 - 1, 1] for _, a1 in plan))  # positions, separators too
+    kept_n = int(counts.clamp(max=cap).sum())
+    cut_bound = sketch_bound_s(bases) * 1e3
+    select_bound = (8 * kept_n + 8 * (SKETCH_SIZE + 2) * n_asm) / PEAK_BYTES_PER_S * 1e3
+    res = [
+        dict(name='sketch_cut', route='cuda', source='seqwin_tpu_torch/csrc/sketch.cu',
+             replaces='none: new in the port', launches=len(plan), mismatches=0,
+             max_abs_err=0.0, n=n, bases=bases, ms=cut_ms, plain_ms=plain_ms,
+             bound_ms=cut_bound, bound_by='operations (portbench/sketch_peaks.py)',
+             library_ms=None, candidates=int(counts.sum())),
+        dict(name='sketch_select', route='cuda', source='seqwin_tpu_torch/csrc/sketch.cu',
+             replaces='none: new in the port', launches=1, mismatches=0, max_abs_err=0.0,
+             n=kept_n, assemblies=n_asm, ms=select_ms, plain_ms=select_plain_ms,
+             bound_ms=select_bound, bound_by='bytes (candidates read, rows written)',
+             library_ms=None),
+    ]
+    for r in res:
+        log(f"[phase7 kernel] {r['name']} on the {n_asm} assemblies ({len(plan)} chunks, "
+            f"{bases} bases, {int(counts.sum())} candidates): equal to its plain version; "
+            f"kernel {r['ms']:.4f} ms a job, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms'] * 1e3:.1f} us by {r['bound_by']}; on {card}")
     return res
 
 
@@ -1789,6 +1925,7 @@ def phase_multi_host(paths, targets, single, single_s: float, lists: dict, reduc
                                  f'{logs[r].read_text()[-4000:]}')
 
     want_digest = build_digest(single)
+    cuts = expected_cuts(parse_assemblies(list_paths(lists)))
     sizes = [Path(p).stat().st_size for p in paths]
     one_card = torch.cuda.device_count() == 1
     batches = _size_batches(task['paths'], sizes, 2 * LOW_MEMORY_CHUNK_BASES)
@@ -1802,7 +1939,7 @@ def phase_multi_host(paths, targets, single, single_s: float, lists: dict, reduc
                                      'single-device build')
             owned = (sum(bool(partition_indices(sizes[lo:hi], 2, r)) for lo, hi in batches)
                      if label == 'low_memory' else 1)
-            want = {'phase1_z': 0, 'phase1_zc': b['n_chunks'], 'phase1_pfx': b['n_chunks']}
+            want = want_launches(0, b['n_chunks'], b['n_chunks'])
             if b['launches'] != want or not b['n_chunks'] or (one_card and b['n_chunks'] != owned):
                 raise AssertionError(f'multi-host {label} rank {r} launches {b["launches"]} '
                                      f'({b["n_chunks"]} shard streams), expected {want}, '
@@ -1815,8 +1952,11 @@ def phase_multi_host(paths, targets, single, single_s: float, lists: dict, reduc
             if differ:
                 raise AssertionError(f'multi-host CLI ({title}) of rank {r} differs from the '
                                      f'single-process run in {differ}')
-            if c['launches']['phase1_z'] or not c['launches']['phase1_zc']:
-                raise AssertionError(f'multi-host CLI ({title}) rank {r} launches {c["launches"]}')
+            sketch = (cuts, 1) if title == 'gpu_sketch' else (0, 0)
+            if (c['launches']['phase1_z'] or not c['launches']['phase1_zc']
+                    or (c['launches']['sketch_cut'], c['launches']['sketch_select']) != sketch):
+                raise AssertionError(f'multi-host CLI ({title}) rank {r} launches {c["launches"]}, '
+                                     f'expected (sketch_cut, sketch_select) = {sketch}')
         out[f'rank{r}'] = res
         log(f"[phase8 multi-host] rank {r} of 2 on {torch.cuda.get_device_name(0)}: 192 Mbp "
             f"graph.build byte-equal to the single-device build, plain {res['plain']['secs']:.2f} s "
@@ -1929,6 +2069,17 @@ def main() -> int:
                 label: {key: r[key] for key in ('n', 'ms', 'bound_ms', 'bound_by')}
                 | ({'plain_ms': r['plain_ms']} if 'plain_ms' in r else {})
                 for label, r in (('192mbp', fused_main), ('804mbp', fused_pipe))}
+    for kern in sketch_full['kernels']:
+        kname = kern['name']
+        kern['phase7_launches'] = {
+            'cli_sketch_device_804mbp': sketch_full['launches'][kname],
+            'sketches_804mbp': sketch_full['sketch_launches'][kname],
+            **{f'cli_{k}_24mbp': v['launches'][kname] for k, v in sketch_reduced.items()
+               if k != 'keep_codes'}}
+        kern['phase8_launches'] = {
+            f'rank{r}_cli_sketch_device': multi_host[f'rank{r}']['gpu_sketch']['launches'][kname]
+            for r in range(2)}
+        kernels.append(kern)
     log(json.dumps({'kernels': kernels}))
     log(card)
     print(json.dumps({'ok': True, 'device': {

@@ -20,6 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
 
 
 def _nvcc() -> str:

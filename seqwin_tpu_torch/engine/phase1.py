@@ -22,6 +22,7 @@ import torch
 
 from ..ops import u64
 from ..ops.hashing import M64, SEEDS, SEEDS_COMP, srol
+from ._kernels import SMEM_LIMIT
 
 SENTINEL = u64.as_signed(M64)  # -1: the all-ones hash, "no minimum"
 _M33 = (1 << 33) - 1
@@ -178,7 +179,6 @@ def rot_seed_tables(k: int, device: torch.device) -> torch.Tensor:
 
 
 _TILE = 4096            # output positions per CTA (a multiple of 256)
-_SMEM_LIMIT = 232448    # dynamic shared memory a block may use on Hopper
 _MODES = {'phase1_z': 0, 'phase1_zc': 1, 'phase1_pfx': 2}
 
 
@@ -202,10 +202,10 @@ def _lib() -> ctypes.CDLL:
 def _launch(name: str, codes_aug: torch.Tensor, k: int, w: int, *outs: torch.Tensor) -> None:
     lib = _lib()
     smem = lib.phase1_smem_bytes(k, w, _TILE, _MODES[name])
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f'{name}: k={k}, w={w} needs {smem} B of shared memory per '
-            f'block (limit {_SMEM_LIMIT})')
+            f'block (limit {SMEM_LIMIT})')
     dev = codes_aug.device
     tabs = rot_seed_tables(k, dev)
     with torch.cuda.device(dev):

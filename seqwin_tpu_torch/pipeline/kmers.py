@@ -14,7 +14,8 @@ the pickled run holds none.
 
 Spans (`engine/timeline.py`): ``phase.build_graph``, ``phase.threshold``
 (with ``threshold.sketches`` around the device sketches, its ``bases``
-hashed and ``h2d_bytes`` copied, separators included, and
+hashed and ``h2d_bytes`` copied, separators included, on a card the cut's
+``candidates`` and ``fallbacks`` (`mash.py`), and
 ``threshold.jaccard`` around their Jaccard matrix, its ``pairs`` and
 ``blocks``) and ``phase.subgraphs`` (with ``subgraphs.edges``, the edge
 filter and the adjacency, ``subgraphs.search`` and ``subgraphs.compact``,
@@ -245,11 +246,16 @@ def _device_jaccard(assemblies: Assemblies, config: Config, records=None) -> NDA
         records = [codes for _, codes in iter_assemblies([str(p) for p in assemblies.path],
                                                            config.n_cpu)]
     with timeline.span('threshold.sketches', assemblies=len(records)) as span:
+        cut = {}  # the cut path's candidates and fallbacks; empty on the torch path
         sketches = device_sketches(records, config.kmerlen, config.sketchsize,
-                                   seed_pattern=config.seed_pattern, device=device)
+                                   seed_pattern=config.seed_pattern, device=device,
+                                   n_cpu=config.n_cpu, stats=cut)
+        if cut:  # a run whose assemblies left the kernels says so in its log
+            logger.info(f" - Sketch cut: {cut['candidates']} candidates kept, "
+                        f"{cut['fallbacks']} of {len(records)} assemblies redone in full")
         if span:
             bases = sum(stream_bases(recs, config.seed_pattern) for recs in records)
-            span.set(bases=bases, h2d_bytes=bases)  # one uint8 code a position
+            span.set(bases=bases, h2d_bytes=bases, **cut)  # one uint8 code a position
     pairs = len(sketches) * (len(sketches) + 1) // 2
     with timeline.span('threshold.jaccard', pairs=pairs,
                        blocks=-(-pairs // pair_block(config.sketchsize))):

@@ -18,6 +18,7 @@ import seqwin_tpu_torch
 from seqwin_tpu_torch import mash as M
 from seqwin_tpu_torch.ops import spaced as S
 from seqwin_tpu_torch.ops import u64
+from seqwin_tpu_torch.ops.hashing import M64
 
 PATTERNS = ['1', '11011', '101101101', '1100110011', '110000000011', '10101']
 
@@ -102,6 +103,51 @@ def test_device_sketches_contiguous_match_jax(k, sketchsize):
     _assert_sketches_equal(got, jm.device_sketches(recs, k, sketchsize))
     assert max(len(s) for s in got) == min(sketchsize, max(len(s) for s in got))
     assert [len(s) for s in got][4:6] == [0, 0] and len(got[-1]) == 0
+
+
+@pytest.mark.parametrize('k', [15, 21, 32, 33, 63])
+@pytest.mark.parametrize('sketchsize', [50, 5000])
+def test_cut_sketches_contiguous_match_jax(k, sketchsize, monkeypatch):
+    """The cut path (`cut_sketches`, the kernels' plain versions on the
+    CPU) in chunks of at most 2,000 positions, so that several chunks run
+    and the longer assemblies take one each. Only an assembly with fewer
+    distinct k-mers than the sketch size under a cut below all-ones (the
+    all-N one at 50) is redone in full."""
+    recs = _assemblies(np.random.default_rng(k), k)
+    monkeypatch.setattr(M, 'CHUNK_BASES', 2_000)
+    got, candidates, fallbacks = M.cut_sketches(recs, k, sketchsize, torch.device('cpu'))
+    _assert_sketches_equal(got, jm.device_sketches(recs, k, sketchsize))
+    lengths = [M.stream_bases(r) for r in recs]
+    short = [len(g) < sketchsize and M.cut_threshold(n, sketchsize) < M64
+             for g, n in zip(got, lengths)]
+    assert candidates > 0 and fallbacks == sum(short) == (sketchsize == 50)
+    assert max(lengths) > 2_000 and 3 < len(M.chunk_plan(lengths, 2_000)) < len(recs)
+
+
+def _repeat(rng):
+    """A 37-base unit 300 times: 37 distinct 21-mers under a cut below
+    all-ones, too few for a sketch of 50."""
+    return [[_codes(rng, 20_000, 0.0)], [np.tile(_codes(rng, 37, 0.0), 300)]]
+
+
+def _overflow(rng):
+    """200 bases of a 4-base unit all of whose 21-mers hash below the cut
+    of a sketch of 10 over 380 positions: the counter passes the slots."""
+    unit = np.array([0, 3, 2, 1], np.uint8)
+    return [[np.concatenate([np.tile(unit, 50), _codes(rng, 180, 0.0)])],
+            [_codes(rng, 20_000, 0.0)]]
+
+
+@pytest.mark.parametrize('make, sketchsize, redone', [(_repeat, 50, [1]), (_overflow, 10, [0])],
+                         ids=['low_complexity_repeat', 'candidate_overflow'])
+def test_cut_sketches_forced_fallbacks_match_jax(make, sketchsize, redone, monkeypatch):
+    """An assembly the cut cannot settle is redone in full, and the
+    sketches still equal the JAX package's."""
+    recs = make(np.random.default_rng(sketchsize))
+    monkeypatch.setattr(M, 'CHUNK_BASES', 8_000)
+    got, _, fallbacks = M.cut_sketches(recs, 21, sketchsize, torch.device('cpu'))
+    _assert_sketches_equal(got, jm.device_sketches(recs, 21, sketchsize))
+    assert fallbacks == len(redone)
 
 
 @pytest.mark.parametrize('sketchsize', [64, 4096])

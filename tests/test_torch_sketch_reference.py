@@ -112,8 +112,8 @@ def _reference(assemblies, k, size, device):
     return sketches, mtx
 
 
-def _assert_matches(assemblies, n_tar, k, size, device):
-    got = mash.device_sketches(assemblies, k, size, device=device)
+def _assert_matches(assemblies, n_tar, k, size, device, stats=None):
+    got = mash.device_sketches(assemblies, k, size, device=device, stats=stats)
     want, want_mtx = _reference(assemblies, k, size, device)
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -146,7 +146,9 @@ def test_sketches_match_the_reference(case):
 @pytest.mark.gpu
 def test_sketches_of_the_171_assemblies_on_the_card(tmp_path):
     """Every sketch of the benchmark's 171-assembly set (803.7 Mbp) and the
-    whole 171 x 171 Jaccard matrix on the card, against the reference."""
+    whole 171 x 171 Jaccard matrix on the card, against the reference; the
+    sketches come from the cut path (kernels `sketch_cut` and
+    `sketch_select`) with no assembly redone."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     bench = spec.benchmark()
@@ -157,9 +159,11 @@ def test_sketches_of_the_171_assemblies_on_the_card(tmp_path):
     with ThreadPoolExecutor(max_workers=8) as ex:
         assemblies = [codes for _, codes in ex.map(fasta.read_records, data['paths'])]
     assert sum(map(len, (r for recs in assemblies for r in recs))) == sum(data['record_lengths'])
+    launches, stats = mash.sketch_select.launches, {}
     got, mtx = _assert_matches(assemblies, sum(data['is_target']), config['kmerlen'],
-                               SKETCH_SIZE, 'cuda')
+                               SKETCH_SIZE, 'cuda', stats)
+    assert mash.sketch_select.launches == launches + 1 and stats['fallbacks'] == 0
     assert len(got) == 171 and all(len(s) == SKETCH_SIZE == 1000 for s in got)
     print(json.dumps({'assemblies': len(got), 'pairs': int(np.triu_indices(len(got))[0].size),
                       'jaccard_min': float(mtx.min()), 'jaccard_max': float(mtx.max()),
-                      'device': torch.cuda.get_device_name(0)}))
+                      **stats, 'device': torch.cuda.get_device_name(0)}))
