@@ -105,19 +105,6 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    and `sketch_select` launches those of phase 7's. Seconds and launches per
    process; ``--profile`` traces one more build in each (device busy, host
    spans).
-9. The fused one-program build (``SEQWIN_TPU_TORCH_FUSED=1``,
-   `engine/fused.py`). (1) Phase 3's data and phase 4's 192 Mbp through
-   `graph.build`, byte-equal to the per-chunk build, B1 once per launch
-   group; at 192 Mbp both timed in turns (per-chunk, fused, fused,
-   per-chunk). (2) B1 on the fused 192 Mbp stream (every record end to
-   end) against `phase1_z_plain`, exact, both timed with CUDA events. (3)
-   The 804 Mbp proxy CLI (phase 5's data and options) with the variable
-   set: its files byte-equal to phase 5's run, wall time, `Finished in`
-   seconds and peak device memory; B1 on that fused stream (~2^29.6
-   positions) exact against B1 on each of its chunks, rebased, and timed.
-   (4) Phase 3's data at a 2^18-base budget, below its largest record:
-   the fused build falls back to the per-chunk path (counted) and is
-   byte-equal to it.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It imports
@@ -579,11 +566,10 @@ def check_no_sync_deferred(paths, budget: int = 1 << 21):
     import torch
 
     from seqwin_tpu_torch.engine import hybrid
-    from seqwin_tpu_torch.graph.build import _group_chunks
 
     dev = torch.device('cuda')
     records, offsets = parse_records(paths)
-    chunks, _ = _group_chunks([(None, records)], budget)
+    chunks = [(records[lo:hi], lo) for lo, hi in pack_chunks([len(r) for r in records], budget)]
     preps = [hybrid.pinned_host_prep(recs, K, W, base, offsets, dev) for recs, base in chunks]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode('error')
@@ -659,212 +645,6 @@ def timeline_run(fn):
     return out, timeline_gaps(events)
 
 
-class fused_build:
-    """``SEQWIN_TPU_TORCH_FUSED=1`` inside the block (a build reads it when
-    it starts)."""
-
-    def __enter__(self):
-        os.environ['SEQWIN_TPU_TORCH_FUSED'] = '1'
-
-    def __exit__(self, *exc):
-        del os.environ['SEQWIN_TPU_TORCH_FUSED']
-
-
-def expected_groups(records, budget: int) -> int:
-    """B1 launches of the fused build of ``records``: its launch groups of
-    whole chunks at ``budget``."""
-    from seqwin_tpu_torch.engine.fused import _launch_groups
-    from seqwin_tpu_torch.graph.build import _group_chunks
-
-    chunks, _ = _group_chunks([(None, records)], budget)
-    sizes = [sum(len(c) for c in recs) for recs, _ in chunks]
-    return len(_launch_groups(np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])))
-
-
-def phase_fused_small(paths, targets, per_chunk) -> dict:
-    """Phase 9 (1) on phase 3's data and (4): the fused build byte-equal to
-    the per-chunk build ``per_chunk``, B1 once per launch group; at a
-    2^18-base budget (below the largest record) it falls back, counted,
-    and equals the per-chunk build at that budget, B1 once per chunk and
-    block of the per-chunk plan."""
-    import torch
-
-    from seqwin_tpu_torch.graph import build
-    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, counters
-
-    t_phase = time.perf_counter()
-    records, _ = parse_records(paths)
-    out = {}
-    for label, budget in (('fused', None), ('oversized_fallback', 1 << 18)):
-        if budget:
-            os.environ['SEQWIN_TPU_TORCH_CHUNK_BASES'] = str(budget)
-        try:
-            want = per_chunk if budget is None else build(paths, K, W, targets, n_cpu=8)
-            counters['fused_fallbacks'] = 0
-            reset_launches()
-            t0 = time.perf_counter()
-            with fused_build():
-                got = build(paths, K, W, targets, n_cpu=8)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = read_launches()
-        finally:
-            os.environ.pop('SEQWIN_TPU_TORCH_CHUNK_BASES', None)
-        _assert_same_build(f'fused ({label}) vs per-chunk build, 8 x 1 Mbp', got, want)
-        b1 = (expected_groups(records, DEFAULT_CHUNK_BASES) if budget is None
-              else expected_scans(records, budget))
-        if launches != want_launches(b1, 0, 0):
-            raise AssertionError(f'fused ({label}) launches {launches}, expected B1 = {b1}')
-        if counters['fused_fallbacks'] != (budget is not None):
-            raise AssertionError(f"fused ({label}): {counters['fused_fallbacks']} fallbacks")
-        out[label] = dict(secs=secs, launches=launches, fallbacks=counters['fused_fallbacks'])
-        log(f'[phase9 fused] 8 x 1 Mbp{f" at budget {budget}" if budget else ""}: '
-            f'SEQWIN_TPU_TORCH_FUSED=1 byte-equal to the per-chunk build in {secs:.2f} s; '
-            f"launches {launches}; fallbacks {counters['fused_fallbacks']}")
-    out['phase_s'] = time.perf_counter() - t_phase
-    return out
-
-
-def b1_bound(n: int, int_ops_per_s: float) -> tuple[float, str]:
-    """(ms, what bounds it) of B1 over n positions: 5 bytes per position at
-    the memory rate, or its least 32-bit instruction count at the integer
-    rate, whichever takes longer."""
-    bytes_s = 5 * n / HBM_BYTES_PER_S
-    ops_s = OPS_PER_POS['phase1_z'] * n / int_ops_per_s
-    return max(bytes_s, ops_s) * 1e3, 'bytes' if bytes_s >= ops_s else 'operations'
-
-
-def phase_fused_main(paths, targets, single, card: str) -> dict:
-    """Phase 9 (1) at 192 Mbp and (2): the fused `graph.build` byte-equal to
-    the per-chunk build ``single``, B1 once per launch group, both timed in
-    turns; then B1 on the fused stream (every record end to end) against
-    `phase1_z_plain`, exact, both timed with CUDA events."""
-    import torch
-
-    from seqwin_tpu_torch.engine import phase1
-    from seqwin_tpu_torch.graph import build
-    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
-
-    records, _ = parse_records(paths)
-    groups = expected_groups(records, DEFAULT_CHUNK_BASES)
-    secs = {'per_chunk': [], 'fused': []}
-    launches = None
-    for label in ('per_chunk', 'fused', 'fused', 'per_chunk'):
-        reset_launches()
-        t0 = time.perf_counter()
-        if label == 'fused':
-            with fused_build():
-                got = build(paths, K, W, targets, n_cpu=8)
-        else:
-            got = build(paths, K, W, targets, n_cpu=8)
-        torch.cuda.synchronize()
-        secs[label].append(time.perf_counter() - t0)
-        _assert_same_build(f'192 Mbp {label} vs the single-device build', got, single)
-        del got
-        if label == 'fused':
-            launches = read_launches()
-            if launches != want_launches(groups, 0, 0):
-                raise AssertionError(f'192 Mbp fused launches {launches}, expected B1 = {groups}')
-    log(f"[phase9 fused] 192 Mbp graph.build: fused byte-equal to per-chunk; seconds in turns "
-        f"per-chunk {secs['per_chunk'][0]:.3f}, fused {secs['fused'][0]:.3f}, "
-        f"{secs['fused'][1]:.3f}, per-chunk {secs['per_chunk'][1]:.3f}; fused launches "
-        f'{launches} ({groups} launch group); on {card}')
-
-    stream = torch.from_numpy(aug_stream(records)).to('cuda')
-    del records
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    got, want = phase1.phase1_z(stream, K, W), phase1.phase1_z_plain(stream, K, W)
-    torch.cuda.synchronize()
-    bad, err = _compare((got,), (want,))
-    plain_peak = torch.cuda.max_memory_allocated()
-    del got, want
-    if bad:
-        raise AssertionError(f'B1 on the fused 192 Mbp stream: {bad} mismatches')
-    hz, _ = sm_clock_hz()
-    n = stream.numel()
-    bound, bound_by = b1_bound(n, INT32_PER_SM_CLOCK * SMS * hz)
-    ms = cuda_ms(lambda: phase1.phase1_z(stream, K, W), iters=10)
-    plain_ms = cuda_ms(lambda: phase1.phase1_z_plain(stream, K, W), iters=1, warmup=1)
-    del stream
-    torch.cuda.empty_cache()
-    log(f'[phase9 fused] B1 on the fused 192 Mbp stream, n={n} (2^{np.log2(n):.2f}): '
-        f'mismatches=0 against phase1_z_plain; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms '
-        f'(peak {plain_peak / 2**30:.1f} GiB), bound {bound:.4f} ms set by {bound_by}; on {card}')
-    return dict(secs=secs, launches=launches, groups=groups, n=n, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, max_abs_err=float(err))
-
-
-def phase_fused_pipeline(td: Path, pipe: dict, card: str) -> dict:
-    """Phase 9 (3) on phase 5's 804 Mbp proxy in ``td``: `cli.main` with
-    ``SEQWIN_TPU_TORCH_FUSED=1``, its files byte-equal to phase 5's ``e2e``
-    run, B1 once per launch group, wall, `Finished in` seconds and peak
-    device memory; then B1 on the fused stream exact against B1 on each
-    of its chunks (rebased), and timed."""
-    import torch
-
-    from seqwin_tpu_torch import cli
-    from seqwin_tpu_torch.engine import phase1
-    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, _group_chunks
-
-    lists = pipe['lists']
-    records, _ = parse_records(list_paths(lists))
-    groups = expected_groups(records, DEFAULT_CHUNK_BASES)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    with fused_build():
-        rc = cli.main(['--tar-paths', str(lists['tar_paths']), '--neg-paths',
-                       str(lists['neg_paths']), '--prefix', str(td), '--title', 'e2e_fused',
-                       '--no-mash', '--no-blast', '-p', '8'])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    launches = read_launches()
-    if rc != 0:
-        raise AssertionError(f'cli.main with SEQWIN_TPU_TORCH_FUSED=1 exited {rc}')
-    differ = _differing(td / 'e2e', td / 'e2e_fused', FILES)
-    if differ:
-        raise AssertionError(f'804 Mbp fused CLI and the per-chunk run differ in {differ}')
-    if launches != want_launches(groups, 0, 0):
-        raise AssertionError(f'804 Mbp fused CLI launches {launches}, expected B1 = {groups}')
-    res = dict(wall_s=wall, phases_s=log_phases(td / 'e2e_fused' / 'seqwin.log'),
-               peak_bytes=peak, launches=launches, groups=groups)
-    log(f"[phase9 fused] {PROXY[0]} + {PROXY[1]} x {PROXY[2]} bp, cli.main -p 8 with "
-        f"SEQWIN_TPU_TORCH_FUSED=1: byte-equal to phase 5's run ({', '.join(FILES)}); {wall:.2f} s "
-        f"wall; phases (s) {json.dumps(res['phases_s'])}; peak device memory "
-        f"{peak / 2**30:.2f} GiB (per-chunk runs: "
-        + ', '.join(f"{r['peak_bytes'] / 2**30:.2f}" for r in pipe['runs'])
-        + f' GiB); launches {launches}; on {card}')
-
-    chunks, _ = _group_chunks([(None, records)], DEFAULT_CHUNK_BASES)
-    stream = torch.from_numpy(aug_stream(records)).to('cuda')
-    del records
-    n = stream.numel()
-    z = phase1.phase1_z(stream, K, W)
-    bad, o = 0, 0
-    for recs, _ in chunks:
-        size = sum(len(c) for c in recs)
-        zc = phase1.phase1_z(stream[o:o + size], K, W)
-        bad += int((z[o:o + size] != torch.where(zc >= 0, zc + o, -1)).sum())
-        o += size
-    del z
-    if bad or o != n:
-        raise AssertionError(f'B1 on the fused 804 Mbp stream: {bad} mismatches against its chunks')
-    hz, _ = sm_clock_hz()
-    bound, bound_by = b1_bound(n, INT32_PER_SM_CLOCK * SMS * hz)
-    ms = cuda_ms(lambda: phase1.phase1_z(stream, K, W), iters=5)
-    del stream
-    torch.cuda.empty_cache()
-    res.update(n=n, ms=ms, bound_ms=bound, bound_by=bound_by)
-    log(f'[phase9 fused] B1 on the fused 804 Mbp stream, n={n} (2^{np.log2(n):.2f}): '
-        f'mismatches=0 against B1 on its {len(chunks)} chunks (rebased); kernel {ms:.4f} ms, '
-        f'plain not run (its int64 temporaries would pass the card memory), bound {bound:.4f} ms '
-        f'set by {bound_by}; on {card}')
-    return res
-
-
 def phase_small(seed: int, devices):
     """8 x 1 Mbp (3 records each, N runs, one empty record): the GPU build
     against the CPU build, and the multi-device build over ``devices``
@@ -891,7 +671,6 @@ def phase_small(seed: int, devices):
         grew = {k: v - before[k] for k, v in read_launches().items()}
         check_no_sync(paths, devices)
         check_no_sync_deferred(paths)
-        fused = phase_fused_small(paths, targets, gpu)
     _assert_same_build('GPU build vs CPU build', gpu, cpu)
     log(f'[cpu-vs-gpu] 8 x 1 Mbp: byte-equal kmers={len(gpu[0])} nodes={len(gpu[1])} '
         f'edges={len(gpu[2])} (gpu {t_gpu:.2f} s, cpu {t_cpu:.2f} s)')
@@ -909,7 +688,6 @@ def phase_small(seed: int, devices):
     log(f'[multi-vs-single] 8 x 1 Mbp over {len(devices)} shards {[str(d) for d in devices]}: '
         f'byte-equal to the single-device build; launches {grew} '
         f'({graph.n_chunks} shards with bases) in {t_multi:.2f} s')
-    return fused
 
 
 def sort_engine_build(paths, targets):
@@ -1127,10 +905,9 @@ def serial_prep_ms(paths, dev) -> dict:
     ``paths`` at the default budget, one after another on this thread: the
     prep work the build's pool spreads over its threads."""
     from seqwin_tpu_torch.engine import hybrid
-    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES, _group_chunks
 
     records, offsets = parse_records(paths)
-    chunks, _ = _group_chunks([(None, records)], DEFAULT_CHUNK_BASES)
+    chunks = [(records[lo:hi], lo) for lo, hi in pack_chunks([len(r) for r in records])]
     times = []
     for recs, base in chunks:
         t0 = time.perf_counter()
@@ -1195,17 +972,21 @@ def expected_scans(records, budget: int) -> int:
     return scans + (bases > 0)
 
 
-def expected_chunks(rec_lens) -> int:
-    """Chunks of the single-device build: records in scan order, a new
-    chunk when the next record would pass the chunk budget."""
+def pack_chunks(lens, budget: int | None = None) -> list[tuple[int, int]]:
+    """The single-device build's chunks of records of lengths ``lens`` (scan
+    order, none above the budget) at ``budget`` (default: the build's
+    `DEFAULT_CHUNK_BASES`): [(first record, end record), ...], a new chunk
+    when the next record would pass the budget."""
     from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
 
-    chunks, bases = 0, 0
-    for n in rec_lens:
-        if bases + n > DEFAULT_CHUNK_BASES and bases:
-            chunks, bases = chunks + 1, 0
+    budget = budget or DEFAULT_CHUNK_BASES
+    spans, lo, bases = [], 0, 0
+    for i, n in enumerate(lens):
+        if bases + n > budget and i > lo:
+            spans.append((lo, i))
+            lo, bases = i, 0
         bases += n
-    return chunks + (bases > 0)
+    return spans + [(lo, len(lens))] if len(lens) > lo else spans
 
 
 FILES = ('signatures.fasta', 'signatures.csv', 'assemblies.csv')
@@ -1303,7 +1084,7 @@ def phase_pipeline_full(seed: int, profile: bool, card: str, td: Path) -> dict:
     lists, rec_lens = proxy_data(td, n_tar, n_neg, genome_len, seed + 171)
     log(f'[pipeline] datagen {time.perf_counter() - t0:.1f} s '
         f'({n_tar} + {n_neg} x {genome_len} bp, {len(rec_lens)} records)')
-    chunks = expected_chunks(rec_lens)
+    chunks = len(pack_chunks(rec_lens))
     runs = []
     for title in ('e2e_first', 'e2e'):
         argv = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
@@ -1438,9 +1219,11 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
     import torch
 
     from seqwin_tpu_torch.graph import build
-    from seqwin_tpu_torch.graph.build import DEFAULT_CHUNK_BASES
     from seqwin_tpu_torch.parallel import build_distributed
     from seqwin_tpu_torch.parallel.distributed import sharded_block_plan
+
+    build_mod = sys.modules['seqwin_tpu_torch.graph.build']
+    default_budget = build_mod.DEFAULT_CHUNK_BASES
 
     rng = np.random.default_rng(seed + 61)
     long_len = LONG_LEN
@@ -1459,8 +1242,7 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
         n_blocks = len(sharded_block_plan(records[0], K, W, len(devices)) or [None])
         results, runs = {}, {}
         for label, budget in (('blocks', None), ('one_chunk', 1 << 27)):
-            if budget:
-                os.environ['SEQWIN_TPU_TORCH_CHUNK_BASES'] = str(budget)
+            build_mod.DEFAULT_CHUNK_BASES = budget or default_budget
             try:
                 reset_launches()
                 t0 = time.perf_counter()
@@ -1469,8 +1251,8 @@ def phase_long_record(seed: int, devices, card: str) -> dict:
                 secs = time.perf_counter() - t0
                 launches = read_launches()
             finally:
-                os.environ.pop('SEQWIN_TPU_TORCH_CHUNK_BASES', None)
-            want = want_launches(expected_scans(records, budget or DEFAULT_CHUNK_BASES), 0, 0)
+                build_mod.DEFAULT_CHUNK_BASES = default_budget
+            want = want_launches(expected_scans(records, budget or default_budget), 0, 0)
             if launches != want:
                 raise AssertionError(f'long record ({label}) launches {launches}, expected {want}')
             runs[label] = dict(secs=secs, launches=launches)
@@ -1574,7 +1356,7 @@ def phase_sketch_reduced(lists: dict, rec_lens, td: Path, devices, card: str) ->
 
     common = ['--tar-paths', str(lists['tar_paths']), '--neg-paths', str(lists['neg_paths']),
               '--prefix', str(td), '--no-mash', '--no-blast', '-p', '8', '--sketch-mode', 'device']
-    chunks = expected_chunks(rec_lens)
+    chunks = len(pack_chunks(rec_lens))
     cuts = expected_cuts(parse_assemblies(list_paths(lists)))
     out = {}
     for label, pattern in (('sketch', None), ('sketch_seed', SEED_PATTERN)):
@@ -2015,14 +1797,11 @@ def main() -> int:
         td = Path(td)
         paths, targets = main_data(td, args.seed)
         kernels = phase_kernels(args.seed, first_shard_stream(paths, devices))
-        fused_small = phase_small(args.seed, devices)
+        phase_small(args.seed, devices)
         main_res = phase_main(paths, targets, args.profile, card, devices, td)
         t0 = time.perf_counter()
         single = build(paths, K, W, targets, n_cpu=8)
         single_s = time.perf_counter() - t0
-        t9 = time.perf_counter()
-        fused_main = phase_fused_main(paths, targets, single, card)
-        phase9_s = fused_small['phase_s'] + time.perf_counter() - t9
         multi_low = phase_multi_low_memory(paths, targets, devices, single)
         reduced = td / 'reduced'
         reduced.mkdir()
@@ -2034,10 +1813,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         pipe = phase_pipeline_full(args.seed, args.profile, card, Path(td))
         sketch_full = phase_sketch_full(Path(td), pipe, card, args.profile)
-        t9 = time.perf_counter()
-        fused_pipe = phase_fused_pipeline(Path(td), pipe, card)
-        phase9_s += time.perf_counter() - t9
-    log(f'[phase9 fused] phase 9 took {phase9_s:.1f} s of command time in all')
     low = phase_low_memory_cli(args.seed, args.profile, card)
     long_rec = phase_long_record(args.seed, devices, card)
     for kern in kernels:
@@ -2059,16 +1834,6 @@ def main() -> int:
             f'rank{r}_{label}': multi_host[f'rank{r}'][run]['launches'][kname]
             for r in range(2) for label, run in (('build', 'plain'), ('build_low_memory', 'low_memory'),
                                                  ('cli', 'gpu'), ('cli_sketch_device', 'gpu_sketch'))}
-        kern['phase9_launches'] = {
-            'fused_8mbp': fused_small['fused']['launches'][kname],
-            'fused_oversized_fallback_8mbp': fused_small['oversized_fallback']['launches'][kname],
-            'fused_192mbp': fused_main['launches'][kname],
-            'fused_cli_804mbp': fused_pipe['launches'][kname]}
-        if kname == 'phase1_z':
-            kern['fused_streams'] = {
-                label: {key: r[key] for key in ('n', 'ms', 'bound_ms', 'bound_by')}
-                | ({'plain_ms': r['plain_ms']} if 'plain_ms' in r else {})
-                for label, r in (('192mbp', fused_main), ('804mbp', fused_pipe))}
     for kern in sketch_full['kernels']:
         kname = kern['name']
         kern['phase7_launches'] = {

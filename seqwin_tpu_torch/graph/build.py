@@ -1,25 +1,22 @@
 """End-to-end minimizer graph construction.
 
 Counterpart: `seqwin_tpu/graph/build.py` (`build`, `build_deferred`,
-`_build_impl`, `_group_chunks`, `_build_numpy`, `kept_node_layout`,
-`filter_kmers`).
+`_build_impl`, `_build_numpy`, `kept_node_layout`, `filter_kmers`).
 
     host FASTA ingest -> base-code streams
       -> chunked scan on the device (`engine/hybrid.scan_chunk_deferred`)
       -> stable sorts + run merges on the device (`engine/aggregate.py`)
       -> numpy arrays in the output contract.
 
-Records are packed into chunks of at most ``SEQWIN_TPU_TORCH_CHUNK_BASES``
-bases (default 2^25; ``LOW_MEMORY_CHUNK_BASES``, 2^22, with ``low_memory``),
+Records are packed into chunks of at most ``DEFAULT_CHUNK_BASES`` bases
+(2^25; ``LOW_MEMORY_CHUNK_BASES``, 2^22, with ``low_memory``),
 in global scan order, so the output is the same for any chunking. Chunk
 host prep runs in a pool of min(4, n_cpu) threads; the main thread
 dispatches each chunk in chunk order without a host sync, fetches every
 chunk's emitted count at once after the last, and re-runs a chunk whose
 emission passed its capacity (`counters`). A record longer than the budget
 is scanned alone in halo'd blocks (`engine/hybrid.scan_record_blocks`,
-which syncs per block). ``SEQWIN_TPU_TORCH_FUSED=1`` takes the one-program
-build (`engine/fused.py`) over every chunk at once, or the per-chunk path
-when a record is above the budget. ``SEQWIN_TPU_TORCH_SCAN=sort`` scans
+which syncs per block). ``SEQWIN_TPU_TORCH_SCAN=sort`` scans
 the chunks with the plain torch sort engine (`engine/minimizer.py`) instead,
 which does not split records. ``devices != 1`` takes the multi-device build
 (`parallel/distributed.py`) over that many cards of this host, with the
@@ -51,7 +48,6 @@ import torch
 from ..device import resolve_device
 from ..engine import timeline
 from ..engine.aggregate import HostGraph, aggregate_device
-from ..engine.fused import build_fused
 from ..engine.hybrid import (pinned_host_prep, scan_chunk_deferred, scan_chunk_device,
                              scan_record_blocks)
 from ..engine.minimizer import scan_chunk_sort
@@ -62,15 +58,14 @@ from .dtypes import KMER_DTYPE
 
 logger = logging.getLogger(__name__)
 
-# Max bases per device scan call; read when a build starts.
+# Max bases per device scan call; read when a build starts, so tests may patch them.
 DEFAULT_CHUNK_BASES = 1 << 25
 LOW_MEMORY_CHUNK_BASES = 1 << 22
 
-# The builds' two documented second tries, counted since the process started
-# (or since a caller set them to 0): a deferred chunk whose emission passed
-# its capacity, scanned again exactly, and a fused build that fell back to the
-# per-chunk path for a record above the chunk budget.
-counters = {'overflow_reruns': 0, 'fused_fallbacks': 0}
+# The build's one documented second try, counted since the process started
+# (or since a caller set it to 0): a deferred chunk whose emission passed its
+# capacity, scanned again exactly.
+counters = {'overflow_reruns': 0}
 
 
 def build(
@@ -194,46 +189,11 @@ def _build_body(assembly_paths, kmerlen, windowsize, is_targets, n_cpu, low_memo
                                      defer=defer, low_memory=low_memory,
                                      keep_codes=keep_codes)
     use_sort_engine = os.environ.get('SEQWIN_TPU_TORCH_SCAN', 'hybrid') == 'sort'
-    chunk_budget = LOW_MEMORY_CHUNK_BASES if low_memory else int(
-        os.environ.get('SEQWIN_TPU_TORCH_CHUNK_BASES', DEFAULT_CHUNK_BASES))
-    use_fused = not use_sort_engine and os.environ.get('SEQWIN_TPU_TORCH_FUSED', '0') == '1'
+    chunk_budget = LOW_MEMORY_CHUNK_BASES if low_memory else DEFAULT_CHUNK_BASES
 
     record_ids: list[tuple[str, ...]] = []
     record_offsets = [0]
     kept_codes: list[list[np.ndarray]] = []
-
-    def take(ids, codes_list):
-        record_ids.append(tuple(ids))
-        record_offsets.append(record_offsets[-1] + len(ids))
-        if keep_codes:
-            kept_codes.append(codes_list)
-
-    def finish(res):
-        offsets = np.array(record_offsets, dtype=np.uintp)
-        if defer:
-            if keep_codes:
-                res.record_codes = kept_codes
-            return res, offsets, record_ids
-        kmers, nodes, edges = res
-        return kmers, nodes, edges, offsets, record_ids
-
-    assemblies = iter_assemblies(paths, n_cpu)
-    if use_fused:
-        # the one-program build needs every record up front: no streamed
-        # ingest. A record above the budget falls back to the per-chunk
-        # path, which splits it into blocks
-        with timeline.span('build.ingest_wait'):
-            parsed = list(assemblies)
-        chunk_lists, oversized = _group_chunks(parsed, chunk_budget)
-        if not oversized:
-            for ids, codes_list in parsed:
-                take(ids, codes_list)
-            return finish(build_fused(
-                chunk_lists, kmerlen, windowsize, np.array(record_offsets, dtype=np.uintp),
-                targets, n_cpu=n_cpu, defer=defer, device=dev))
-        logger.debug('build: fused fell back to per-chunk path')
-        counters['fused_fallbacks'] += 1
-        assemblies = parsed
 
     chunk_results = []  # (e_oh, e_pos, e_rec, count, e_asm) per chunk, scan order
     chunk_inputs = []   # (records, rec_base, pinned prep) of a deferred chunk, else None
@@ -281,17 +241,20 @@ def _build_body(assembly_paths, kmerlen, windowsize, is_targets, n_cpu, low_memo
     # files parse in worker threads, chunks prep in a pool of their own, and
     # the main thread dispatches each prepped chunk in chunk order while
     # later ones parse and prep
+    assemblies = iter_assemblies(paths, n_cpu)
     prep_pool = ThreadPoolExecutor(max_workers=max(1, min(4, int(n_cpu))))
     ok = False
     try:
-        assemblies = iter(assemblies)
         while True:
             with timeline.span('build.ingest_wait'):
                 item = next(assemblies, None)
             if item is None:
                 break
             ids, codes_list = item
-            take(ids, codes_list)
+            record_ids.append(tuple(ids))
+            record_offsets.append(record_offsets[-1] + len(ids))
+            if keep_codes:
+                kept_codes.append(codes_list)
             for codes in codes_list:
                 if not use_sort_engine and len(codes) > chunk_budget:
                     # a record longer than the budget: its own halo'd blocks,
@@ -343,32 +306,12 @@ def _build_body(assembly_paths, kmerlen, windowsize, is_targets, n_cpu, low_memo
         del chunk_inputs  # the pinned host buffers, now that every copy is done
     with timeline.span('build.aggregate'):
         res = aggregate_device(chunk_results, np.asarray(targets, dtype=bool), defer=defer)
-    return finish(res)
-
-
-def _group_chunks(parsed, chunk_budget: int):
-    """Group records into budgeted chunks, the packing rule of the
-    per-chunk dispatch loop. ``parsed``: (record ids, record codes) per
-    assembly. Returns ([(record codes, rec_base), ...], any record above
-    the budget)."""
-    lists: list[tuple[list[np.ndarray], int]] = []
-    cur: list[np.ndarray] = []
-    rec_base = 0
-    bases = 0
-    oversized = False
-    for _, codes_list in parsed:
-        for codes in codes_list:
-            if len(codes) > chunk_budget:
-                oversized = True
-            if bases + len(codes) > chunk_budget and cur:
-                lists.append((cur, rec_base))
-                rec_base += len(cur)
-                cur, bases = [], 0
-            cur.append(codes)
-            bases += len(codes)
-    if cur:
-        lists.append((cur, rec_base))
-    return lists, oversized
+    if not defer:
+        kmers, nodes, edges = res
+        return kmers, nodes, edges, offsets, record_ids
+    if keep_codes:
+        res.record_codes = kept_codes
+    return res, offsets, record_ids
 
 
 def _build_numpy(paths, kmerlen, windowsize, targets, oracle=False):

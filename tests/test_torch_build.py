@@ -1,6 +1,7 @@
 """seqwin_tpu_torch's graph build on the CPU against the JAX package's build
 (numpy backend for the 5-tuple, the device path for the deferred graph)."""
 import gzip
+import importlib
 
 import numpy as np
 import pytest
@@ -10,6 +11,8 @@ from seqwin_tpu.graph.build import build_deferred as jax_build_deferred
 from seqwin_tpu.graph.build import kept_node_layout
 from seqwin_tpu_torch.graph.build import build, build_deferred
 from seqwin_tpu_torch.io.fasta import parse_fasta_codes
+
+build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
 
 K, W = 21, 50
 
@@ -62,11 +65,11 @@ def _assert_build_equal(got, want):
     assert got[4] == want[4]
 
 
-@pytest.mark.parametrize('budget', [None, '30000', '45000'])
+@pytest.mark.parametrize('budget', [None, 30000, 45000])
 def test_build_matches_jax(fastas, reference, monkeypatch, budget):
     """Default budget (one chunk) and budgets that force several chunks."""
     if budget:
-        monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', budget)
+        monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', budget)
     paths, targets = fastas
     got = build(paths, K, W, targets, n_cpu=2, device='cpu')
     assert len(reference[0]) > 1000 and (reference[2]['weight'] > 1).any()
@@ -79,12 +82,9 @@ def test_deferred_dispatch_matches_jax(fastas, reference, monkeypatch, n_cpu, ov
     """The deferred, threaded chunk dispatch with one and four prep threads,
     and with an emission capacity so small that every chunk overflows it
     and is scanned again exactly: byte-equal to the JAX package."""
-    import importlib
-
     from seqwin_tpu_torch.engine import hybrid
 
-    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
-    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', '30000')
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', 30000)
     monkeypatch.setitem(build_mod.counters, 'overflow_reruns', 0)
     if overflow:
         monkeypatch.setattr(hybrid, 'emit_capacity', lambda n, w: 8)
@@ -136,16 +136,13 @@ def test_deferred_compact_kmers_matches_jax(deferred, frac):
     (dict(backend='numpy'), {}),
     (dict(backend='oracle'), {}),
     (dict(devices=2, low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 1}),
-    ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
+    ({}, {'DEFAULT_CHUNK_BASES': 1000}),
 ], ids=['low_memory', 'numpy', 'oracle', 'devices_low_memory', 'long_records'])
 def test_long_record_and_host_paths_match_jax(fastas, monkeypatch, kwargs, env):
     """Low memory (records above its budget in blocks), the host backends,
     multi-device low memory and records above a small chunk budget: each
     byte-equal to the JAX package's host build of the same FASTAs (the
     oracle on three of them: its Python loops are slow)."""
-    import importlib
-
-    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
     for key, val in env.items():
         if key.startswith('SEQWIN'):
             monkeypatch.setenv(key, val)
@@ -163,7 +160,7 @@ def test_build_deferred_counts_chunks(fastas, monkeypatch, budget):
     """``n_chunks`` follows the packing rule: records in scan order, a new
     chunk when the next record would pass the budget."""
     if budget:
-        monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(budget))
+        monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', budget)
     paths, targets = fastas
     lens = [len(c) for p in paths for c in parse_fasta_codes(str(p))[1]]
     want, bases = 1, 0
@@ -176,9 +173,39 @@ def test_build_deferred_counts_chunks(fastas, monkeypatch, budget):
     assert (want > 1) == bool(budget)
 
 
+@pytest.mark.parametrize('n_cpu', [1, 4])
+@pytest.mark.parametrize('lens', [
+    [900, 0, 1200, 0, 0, 1500, 40, 0, 1400, 700, 0],
+    [0, 0, 0, 0],
+], ids=['mixed', 'all_empty'])
+def test_empty_records_match_jax(tmp_path, monkeypatch, lens, n_cpu):
+    """Empty records at the ends of chunks (where the next chunk starts at
+    the same stream position), records shorter than k, N runs, and a
+    dataset of empty records only (every chunk's prep is empty): the
+    per-chunk build at a 1,500-base budget equals the JAX package's host
+    build."""
+    rng = np.random.default_rng(5)
+    alpha = np.frombuffer(b'ACGTN', dtype=np.uint8)
+    recs = []
+    for i, n in enumerate(lens):
+        g = rng.integers(0, 4, size=n).astype(np.uint8)
+        if n > 500:
+            g[100:160 + i] = 4
+        recs.append((f'r{i}', g))
+    paths = []
+    for a, part in enumerate((recs[:3], recs[3:5], recs[5:9], recs[9:])):
+        p = tmp_path / f'a{a}.fasta'
+        p.write_text(''.join(f'>{rid}\n' + alpha[g].tobytes().decode() + '\n' for rid, g in part))
+        paths.append(p)
+    targets = [True, False, True, False]
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', 1500)
+    got = build(paths, 7, 10, targets, n_cpu=n_cpu, device='cpu')
+    _assert_build_equal(got, jax_build(paths, 7, 10, targets, backend='numpy'))
+
+
 @pytest.mark.parametrize('kwargs,env', [
     ({}, {}),
-    ({}, {'SEQWIN_TPU_TORCH_CHUNK_BASES': '1000'}),
+    ({}, {'DEFAULT_CHUNK_BASES': 1000}),
     (dict(low_memory=True), {'LOW_MEMORY_CHUNK_BASES': 6000}),
     ({}, {'SEQWIN_TPU_TORCH_SCAN': 'sort'}),
     (dict(backend='numpy'), {}),
@@ -191,9 +218,6 @@ def test_keep_codes_matches_jax(fastas, monkeypatch, kwargs, env):
     """``keep_codes`` on every build path: ``graph.record_codes`` holds the
     JAX package's parse, per assembly the list of its record codes, and the
     graph is the one built without it."""
-    import importlib
-
-    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
     for key, val in env.items():
         if key.startswith('SEQWIN'):
             monkeypatch.setenv(key, val)

@@ -2,6 +2,8 @@
 `ops/oracle.py`, ``backend='numpy'|'oracle'``) and the sort engine
 (`engine/minimizer.py`, ``SEQWIN_TPU_TORCH_SCAN=sort``) on the CPU against
 their JAX package counterparts, exact equality everywhere."""
+import importlib
+
 import numpy as np
 import pytest
 
@@ -163,14 +165,15 @@ def test_build_host_backend_matches_jax(fastas, backend):
     assert (g.n_kmers, g.n_edges) == (jg.n_kmers, jg.n_edges)
 
 
-@pytest.mark.parametrize('budget', [None, '6000'])
+@pytest.mark.parametrize('budget', [None, 6000])
 def test_sort_engine_build_matches_jax(fastas, monkeypatch, budget):
     """``SEQWIN_TPU_TORCH_SCAN=sort``: one chunk, and chunks smaller than
     the longest record (which the sort engine scans whole)."""
     paths, targets = fastas
     monkeypatch.setenv('SEQWIN_TPU_TORCH_SCAN', 'sort')
     if budget:
-        monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', budget)
+        monkeypatch.setattr(importlib.import_module('seqwin_tpu_torch.graph.build'),
+                            'DEFAULT_CHUNK_BASES', budget)
     got = build(paths, 13, 10, targets, device='cpu')
     want = jax_build(paths, 13, 10, targets, backend='numpy')
     _assert_graph_equal(got[:4], want[:4])
@@ -181,8 +184,6 @@ def test_sort_engine_build_matches_jax(fastas, monkeypatch, budget):
 
 def test_host_backend_takes_no_device(fastas, monkeypatch):
     """The host build never asks for a device; the device build does."""
-    import importlib
-
     def no_device(*args):
         raise AssertionError('a device was requested')
 

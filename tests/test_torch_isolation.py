@@ -20,7 +20,7 @@ def test_import_leaves_jax_and_seqwin_tpu_out(tmp_path):
         'import seqwin_tpu_torch\n'
         'seqwin_tpu_torch.graph.build\n'
         'import seqwin_tpu_torch.engine.hybrid, seqwin_tpu_torch.engine.aggregate\n'
-        'import seqwin_tpu_torch.engine.minimizer, seqwin_tpu_torch.engine.fused\n'
+        'import seqwin_tpu_torch.engine.minimizer\n'
         'import seqwin_tpu_torch.engine.timeline\n'
         'import seqwin_tpu_torch.ops.host_build, seqwin_tpu_torch.ops.oracle\n'
         'import seqwin_tpu_torch.parallel.distributed, seqwin_tpu_torch.parallel.multihost\n'

@@ -13,6 +13,8 @@ from seqwin_tpu.graph.build import build as jax_build
 from seqwin_tpu_torch.engine import timeline
 from seqwin_tpu_torch.graph.build import build
 
+build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
+
 K, W = 21, 50
 BUDGET = 40_000
 
@@ -90,7 +92,7 @@ def _per_chunk(events):
 
 def test_timeline_events_match_jax(fastas, clean_timelines, monkeypatch):
     paths, targets = fastas
-    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', BUDGET)
     monkeypatch.setattr(importlib.import_module('seqwin_tpu.graph.build'),
                         'DEFAULT_CHUNK_BASES', BUDGET)
     monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
@@ -150,7 +152,6 @@ def slow_prep(monkeypatch):
     the last one (`build.prep_wait`) however the threads are scheduled."""
     import time
 
-    build_mod = importlib.import_module('seqwin_tpu_torch.graph.build')
     orig = build_mod.pinned_host_prep
 
     def prep(*args):
@@ -167,7 +168,7 @@ def test_build_spans_from_prep_threads(fastas, clean_timelines, monkeypatch, slo
     import threading
 
     paths, targets = fastas
-    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', BUDGET)
     monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
     build(paths, K, W, targets, n_cpu=2, device='cpu')
     spans = timeline.spans()
@@ -232,7 +233,7 @@ def _cpu_cli(monkeypatch):
 def test_cli_run_records_every_span(cli_lists, clean_timelines, monkeypatch, tmp_path,
                                     slow_prep):
     cli = _cpu_cli(monkeypatch)
-    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', BUDGET)
     monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
     tar, neg = cli_lists
     assert cli.main(['--tar-paths', str(tar), '--neg-paths', str(neg), '--prefix', str(tmp_path),
@@ -313,7 +314,7 @@ def test_spans_share_the_profilers_clock(tmp_path, clean_timelines, monkeypatch)
     fa = tmp_path / 'long.fa'
     fa.write_text('>long\n' + np.frombuffer(b'ACGT', np.uint8)[
         rng.integers(0, 4, size=3 * BUDGET)].tobytes().decode() + '\n')
-    monkeypatch.setenv('SEQWIN_TPU_TORCH_CHUNK_BASES', str(BUDGET))
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', BUDGET)
     monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with timeline.span('warm-up'):  # the profiler's first event of a thread is slow
