@@ -6,7 +6,8 @@ plain class holding the three columns (``path``, ``is_target``,
 the bytes `DataFrame.to_csv(columns=('path', 'is_target'), index=True)`
 gives. Resolving inputs from taxa downloads / path lists / directories,
 pairwise Mash distances, fetching marker sequences, and feeding
-header-rewritten FASTAs to `makeblastdb`.
+header-rewritten FASTAs to `makeblastdb`. Marker sequences are fetched in
+threads of this process, which may hold a CUDA context: no fork.
 
 The `makeblastdb` stream drains a sliding window of process-pool futures
 strictly in submission order: a deterministic stdin byte stream with
@@ -20,7 +21,7 @@ import re
 import subprocess
 from collections import deque
 from collections.abc import Iterable, Iterator, Sequence
-from concurrent.futures import Executor, Future, ProcessPoolExecutor
+from concurrent.futures import Executor, Future, ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from time import time
 
@@ -39,7 +40,6 @@ from .utils import (
     fail,
     load_paths_txt,
     log_elapsed,
-    pool_map,
     write_csv,
 )
 
@@ -65,8 +65,13 @@ def _windowed_ordered(
         yield inflight.popleft().result()
 
 
+def fetch_threads(n_assemblies: int, n_cpu: int) -> int:
+    """Threads `Assemblies.fetch_seq` loads ``n_assemblies`` FASTAs in."""
+    return max(1, min(n_cpu, n_assemblies))
+
+
 def _load_marker_seqs(path: Path, spans: list[tuple[int, int, int]]) -> list[str]:
-    """Worker: slice (record_idx, start, stop) spans out of one assembly."""
+    """Slice (record_idx, start, stop) spans out of one assembly."""
     records = load_fasta(path)
     return [records[rec][start:stop] for rec, start, stop in spans]
 
@@ -119,7 +124,9 @@ class Assemblies:
         self, spans: Sequence[tuple[int, int, int, int]], n_cpu: int
     ) -> list[str]:
         """Sequences for (assembly_idx, record_idx, start, stop) spans,
-        returned in span order; each assembly's FASTA is loaded once."""
+        returned in span order; each assembly's FASTA is loaded once, in
+        this process, in `fetch_threads` threads (file reads and gzip
+        release the GIL)."""
         by_assembly: dict[int, list[tuple[int, int, int]]] = {}
         origin: dict[int, list[int]] = {}
         for row, (asm, rec, start, stop) in enumerate(spans):
@@ -127,8 +134,9 @@ class Assemblies:
             origin.setdefault(asm, []).append(row)
         logger.info(f' - {len(by_assembly)} assemblies to be loaded')
 
-        jobs = [(self.path[asm], rows) for asm, rows in by_assembly.items()]
-        per_assembly = pool_map(_load_marker_seqs, jobs, n_cpu, total=len(jobs))
+        paths = [self.path[asm] for asm in by_assembly]
+        with ThreadPoolExecutor(max_workers=fetch_threads(len(paths), n_cpu)) as pool:
+            per_assembly = list(pool.map(_load_marker_seqs, paths, by_assembly.values()))
 
         out: list[str] = [''] * len(spans)
         for asm, seqs in zip(by_assembly, per_assembly):

@@ -1,31 +1,37 @@
 """Candidate marker (signature) extraction and evaluation.
 
 Counterpart: `seqwin_tpu/pipeline/markers.py`, without pandas. Candidate
-building (`ConnectedKmers`, `_get_loc`, `_get_rep_order`,
-`_get_graph_order`) is a copy: NumPy run-length passes in place of the
-reference's groupby machinery, with the tie-breaks pinned in the
-docstrings. BLAST tables are dicts of numpy columns (`ncbi.Table`), and
+building keeps the reference's semantics (`_get_locs`, `_rep_orders`,
+`_get_graph_order`, with the tie-breaks pinned in the docstrings) but runs
+over every subgraph at once, in this process: one sort of all their k-mer
+rows, NumPy run-length passes in place of the reference's groupby
+machinery, and 64-bit fingerprints, checked element by element, in place
+of its Counters of tuples; only the linear-path check goes subgraph by
+subgraph. BLAST tables are dicts of numpy columns (`ncbi.Table`), and
 `signatures.csv` is written with the bytes pandas' `to_csv` gives.
 
 Spans (`engine/timeline.py`): ``phase.markers`` over the phase's timer,
-holding ``markers.candidates`` (the subgraphs' arguments built,
-``markers.candidate_args`` with ``nodes``, the subgraphs' nodes, and
-``graph_nodes``, the kept graph's, and the candidates made in forked
-workers) and ``markers.fetch_seq`` (the representatives cut from re-read
-FASTAs); ``markers.write`` for the two output files.
+holding ``markers.candidates`` (``rows``, the k-mer rows of the pass, and
+``locs``, the largest runs kept; inside it ``markers.candidate_args``, the
+rows gathered, with ``nodes``, the subgraphs' nodes, and ``graph_nodes``,
+the kept graph's) and ``markers.fetch_seq`` (the representatives cut from
+re-read FASTAs, in ``threads`` threads); ``markers.write`` for the two
+output files. No process pool runs unless BLAST's metrics are taken.
 """
 from __future__ import annotations
 
 import logging
 import os
 from collections import Counter
+from itertools import chain
 from dataclasses import asdict, astuple, dataclass, fields
 from pathlib import Path
 from time import time
+from typing import NamedTuple
 
 import numpy as np
 
-from ..assemblies import Assemblies
+from ..assemblies import Assemblies, fetch_threads
 from ..config import BLASTCONFIG, CONSEC_KMER_MUL, HAS_BLAST, WORKINGDIR, Config, RunState
 from ..engine import timeline
 from ..graph.hashgraph import HashGraph, OrderedKmers
@@ -86,28 +92,17 @@ class ConnectedKmers:
     )
 
     def __init__(
-        self,
-        graph: HashGraph,
-        kmer_rows: tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
-        kmerlen: int,
-        windowsize: int,
-        n_tar: int,
+        self, path: OrderedKmers | None, rep: MarkerLoc, n_rep: int, warnings: set[str]
     ) -> None:
         """Args:
-            graph: the subgraph (adjacency over node hashes).
-            kmer_rows: (hash u64, pos, assembly_idx, record_idx_local) arrays
-                for every k-mer of the subgraph.
-            kmerlen, windowsize: minimizer parameters.
-            n_tar: number of target assemblies.
+            path: the subgraph's linear path in the representative's
+                orientation (None when the subgraph is not linear).
+            rep: the representative occurrence.
+            n_rep: target occurrences with the representative's canonical
+                k-mer order.
+            warnings: the candidate's warnings (`_BAD_WARNINGS` make it bad).
         """
-        warnings: set[str] = set()
-        loc = _get_loc(kmer_rows, kmerlen, windowsize, n_tar)
-        rep_order, n_rep = _get_rep_order(loc, warnings)
-        rep = next(row for row in loc if row.kmers == rep_order)
-        graph_order = _get_graph_order(graph, rep_order, warnings)
-        is_bad = len(warnings.intersection(_BAD_WARNINGS)) > 0
-
-        self.path = graph_order
+        self.path = path
         self.rep = rep
         self.len = rep.len
         self.n_rep = n_rep
@@ -115,90 +110,236 @@ class ConnectedKmers:
         self.metrics = _EMPTY_METRICS
         self.rep_ratio = None
         self.warnings = warnings
-        self.is_bad = is_bad
+        self.is_bad = not warnings.isdisjoint(_BAD_WARNINGS)
 
 
-def _get_loc(kmer_rows, kmerlen: int, windowsize: int, n_tar: int) -> list[MarkerLoc]:
-    """Locate the subgraph in each assembly (the reference's semantics).
+class _Rows(NamedTuple):
+    """Every subgraph's k-mer rows, concatenated in subgraph order; the rows
+    of subgraph i are ``offsets[i]:offsets[i + 1]``."""
 
-    1. Sort k-mers by (assembly, record, pos) -- keys are unique, so the order
-       is fully determined.
-    2. Split into runs where the position gap exceeds 1.5 * windowsize
-       (gap computed on the sorted stream, crossing record boundaries exactly
-       like the reference's ``diff``; groups additionally split on
-       assembly/record change).
-    3. Keep the largest run per assembly (first on ties), count runs as
-       n_repeats, extend stop by k.
+    hashes: np.ndarray   # uint64, the node's hash
+    pos: np.ndarray      # int64
+    asm: np.ndarray      # intp, the assembly
+    rec: np.ndarray      # int64, the record within the assembly
+    offsets: np.ndarray  # int64, n_subgraphs + 1
+
+
+class _Locs(NamedTuple):
+    """The largest run of each (subgraph, assembly), in that order, over the
+    stream sorted by (subgraph, assembly, record, pos)."""
+
+    hashes: np.ndarray   # the sorted stream's hashes
+    sg: np.ndarray
+    asm: np.ndarray
+    rec: np.ndarray
+    first: np.ndarray    # the run's rows in the sorted stream: first:stop
+    stop: np.ndarray
+    start_pos: np.ndarray
+    stop_pos: np.ndarray  # last position + k
+    n_repeats: np.ndarray
+
+
+def _segments(lengths: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(segment id, offset within the segment) of every element of
+    segments of ``lengths``."""
+    seg = np.repeat(np.arange(len(lengths)), lengths)
+    return seg, np.arange(len(seg)) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+
+
+def _heads(ids: np.ndarray) -> np.ndarray:
+    """True at the first element of each run of equal values."""
+    head = np.ones(len(ids), dtype=bool)
+    head[1:] = ids[1:] != ids[:-1]
+    return head
+
+
+def _gather_rows(kg: KmerGraph) -> _Rows:
+    """The rows each subgraph's candidate reads: its nodes in the frozenset's
+    iteration order, each node's k-mers in the kept array's order, with the
+    record split into (assembly, record within it). Index arithmetic over
+    the nodes' start/stop ranges, no loop over rows."""
+    subgraphs = kg.subgraphs
+    nodes = kg.nodes
+    record_offsets = np.asarray(kg.record_offsets, dtype=np.int64)
+    sizes = np.fromiter(map(len, subgraphs), dtype=np.int64, count=len(subgraphs))
+    node_hashes = np.fromiter(chain.from_iterable(subgraphs), dtype=np.uint64,
+                              count=int(sizes.sum()))
+    sorter = np.argsort(nodes['hash'])
+    at = sorter[np.minimum(np.searchsorted(nodes['hash'], node_hashes, sorter=sorter),
+                           len(nodes) - 1)]
+    if not np.array_equal(nodes['hash'][at], node_hashes):
+        raise KeyError('a subgraph holds a node the kept graph lacks')
+    row_start = nodes['start'][at].astype(np.int64)
+    counts = nodes['stop'][at].astype(np.int64) - row_start
+    node_of, within = _segments(counts)
+    kmers = kg.kmers[row_start[node_of] + within]
+    rec_g = kmers['record_idx'].astype(np.int64)
+    asm = np.searchsorted(record_offsets, rec_g, side='right') - 1
+    node_offsets = np.concatenate(([0], np.cumsum(sizes)))
+    row_offsets = np.concatenate(([0], np.cumsum(counts)))[node_offsets]
+    return _Rows(np.repeat(node_hashes, counts), kmers['pos'].astype(np.int64), asm,
+                 rec_g - record_offsets[asm], row_offsets)
+
+
+def _get_locs(rows: _Rows, kmerlen: int, windowsize: int) -> _Locs:
+    """Locate every subgraph in each assembly at once (the reference's
+    semantics, subgraph by subgraph).
+
+    1. Sort the rows by (subgraph, assembly, record, pos), stably, so rows
+       with equal keys keep the gather's order.
+    2. Split into runs where the position gap on the sorted stream exceeds
+       1.5 * windowsize, or the subgraph, assembly or record changes.
+    3. Keep the largest run of each (subgraph, assembly), the first on
+       ties; its runs are its n_repeats; stop is the last position + k.
     """
-    hashes, pos, asm, rec = kmer_rows
-    order = np.lexsort((pos, rec, asm))
-    hashes = hashes[order]
-    pos = pos[order].astype(np.int64)
-    asm = asm[order]
-    rec = rec[order]
-
+    sg = np.repeat(np.arange(len(rows.offsets) - 1), np.diff(rows.offsets))
+    order = np.lexsort((rows.pos, rows.rec, rows.asm, sg))
+    h, pos, asm, rec, sg = (a[order] for a in (rows.hashes, rows.pos, rows.asm, rows.rec, sg))
     n = len(pos)
-    # pandas semantics: groups split when diff(pos) > 1.5*w on the *sorted
-    # stream*, then grouped by (assembly, record, group id).
-    gap = np.zeros(n, dtype=bool)
-    if n > 1:
-        gap[1:] = np.diff(pos) > CONSEC_KMER_MUL * windowsize
-    boundary = gap.copy()
-    boundary[0] = True
-    if n > 1:
-        boundary[1:] |= (asm[1:] != asm[:-1]) | (rec[1:] != rec[:-1])
-    starts = np.flatnonzero(boundary)
-    stops = np.append(starts[1:], n)
-
-    # per-assembly selection: groups are contiguous in assembly order
-    locs: list[MarkerLoc] = []
-    g = 0
-    n_groups = len(starts)
-    while g < n_groups:
-        a = asm[starts[g]]
-        best = g
-        count = 0
-        while g < n_groups and asm[starts[g]] == a:
-            if (stops[g] - starts[g]) > (stops[best] - starts[best]):
-                best = g
-            count += 1
-            g += 1
-        s, e = int(starts[best]), int(stops[best])
-        start = int(pos[s])
-        stop = int(pos[e - 1]) + kmerlen
-        locs.append(MarkerLoc(
-            assembly_idx=int(a),
-            record_idx=int(rec[s]),
-            start=start,
-            stop=stop,
-            n_kmers=e - s,
-            kmers=tuple(int(h) for h in hashes[s:e]),
-            is_target=bool(a < n_tar),
-            n_repeats=count,
-            len=stop - start,
-        ))
-    return locs
+    cut = np.ones(n, dtype=bool)
+    cut[1:] = ((np.diff(pos) > CONSEC_KMER_MUL * windowsize)
+               | (asm[1:] != asm[:-1]) | (rec[1:] != rec[:-1]) | (sg[1:] != sg[:-1]))
+    run_first = np.flatnonzero(cut)
+    run_len = np.diff(np.append(run_first, n))
+    run_asm, run_sg = asm[run_first], sg[run_first]
+    new_loc = _heads(run_asm) | _heads(run_sg)
+    loc_runs = np.flatnonzero(new_loc)
+    loc_of = np.cumsum(new_loc) - 1
+    longest = np.maximum.reduceat(run_len, loc_runs)
+    best = np.flatnonzero(run_len == longest[loc_of])
+    best = best[_heads(loc_of[best])]  # the first longest run of each loc
+    first = run_first[best]
+    stop = first + run_len[best]
+    return _Locs(h, run_sg[loc_runs], run_asm[loc_runs], rec[first], first, stop,
+                 pos[first], pos[stop - 1] + kmerlen,
+                 np.diff(np.append(loc_runs, len(run_first))))
 
 
-def _get_rep_order(loc: list[MarkerLoc], warnings: set) -> tuple[OrderedKmers, int]:
-    """Most common canonical k-mer ordering among targets, weighted by length
-    (tie-breaks: Counter insertion order; canonical =
-    lexicographically smaller of (order, reversed); orientation tie prefers
-    the canonical one)."""
-    c: Counter = Counter(row.kmers for row in loc if row.is_target)
+#: the fingerprints' base: odd, so its powers are invertible mod 2^64
+_FP_BASE = 0x9E3779B97F4A7C15
+_FP_BASE_INV = pow(_FP_BASE, -1, 1 << 64)
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer, element-wise (uint64 arithmetic wraps)."""
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _fingerprints(
+    h: np.ndarray, first: np.ndarray, stop: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """64-bit fingerprints of each slice ``h[first:stop]`` and of its
+    reverse: the sum of mix(h[j]) * B^i over the slice's i-th element, from
+    two prefix sums mod 2^64. Equal slices give equal fingerprints; the
+    converse is for the caller to check."""
+    n = len(h)
+    pw = np.full(n + 1, _FP_BASE, dtype=np.uint64)
+    ipw = np.full(n + 1, _FP_BASE_INV, dtype=np.uint64)
+    pw[0] = ipw[0] = 1
+    np.cumprod(pw, out=pw)
+    np.cumprod(ipw, out=ipw)
+    m = _mix64(h)
+    fwd = np.zeros(n + 1, dtype=np.uint64)
+    bwd = np.zeros(n + 1, dtype=np.uint64)
+    np.cumsum(m * pw[:n], out=fwd[1:])
+    np.cumsum(m * ipw[:n], out=bwd[1:])
+    return (fwd[stop] - fwd[first]) * ipw[first], (bwd[stop] - bwd[first]) * pw[stop - 1]
+
+
+def _rep_order_exact(orders: list[tuple]) -> tuple[tuple, int]:
+    """Most common canonical k-mer ordering among one subgraph's target
+    locs (``orders``, in loc order), weighted by length, and its count, by
+    the reference's Counters (tie-breaks: Counter insertion order;
+    canonical = lexicographically smaller of (order, reversed); orientation
+    tie prefers the canonical one)."""
+    c: Counter = Counter(orders)
     c_canonical: Counter = Counter()
     for kmers, n in c.items():
         c_canonical[sorted((kmers, kmers[::-1]))[0]] += n
     rep_canonical = max(c_canonical, key=lambda k: len(k) * c_canonical[k])
-    rep_order = OrderedKmers(max(
-        (rep_canonical, rep_canonical[::-1]),
-        key=lambda k: c[k],
-    ))
-    if len(rep_order) == 1:
-        warnings.add('single')
-    if rep_order.is_dup:
-        warnings.add('dup')
+    rep_order = max((rep_canonical, rep_canonical[::-1]), key=lambda k: c[k])
     return rep_order, c_canonical[rep_canonical]
+
+
+def _rep_orders(locs: _Locs, n_sg: int, n_tar: int) -> tuple[np.ndarray, np.ndarray]:
+    """`_rep_order_exact` for every subgraph at once: each one's
+    representative loc (the first loc whose k-mers are the chosen order)
+    and n_rep, with no tuple built.
+
+    A target loc's canonical orientation is the reverse where the reverse is
+    smaller at the first position where the two differ. Target locs are
+    grouped by (subgraph, length, fingerprint of the canonical order), in
+    loc order; every member is compared with its group's first member
+    element by element, and a subgraph where two orders shared a
+    fingerprint is decided by `_rep_order_exact` instead. In each subgraph
+    the group with the largest length × count wins, the earliest first
+    member on ties (Counter insertion order); its orientation with more
+    members wins, the canonical one on ties; the representative is the
+    group's first member in that orientation (targets precede non-targets,
+    so no earlier loc holds the order)."""
+    h = locs.hashes
+    tgt = np.flatnonzero(locs.asm < n_tar)
+    t_sg, first, stop = locs.sg[tgt], locs.first[tgt], locs.stop[tgt]
+    length = stop - first
+    seg, j = _segments(length // 2)
+    a, b = h[first[seg] + j], h[stop[seg] - 1 - j]
+    differ = np.flatnonzero(a != b)
+    differ = differ[_heads(seg[differ])]
+    rev = np.zeros(len(tgt), dtype=bool)
+    rev[seg[differ]] = b[differ] < a[differ]
+    fp_fwd, fp_rev = _fingerprints(h, first, stop)
+    fp = np.where(rev, fp_rev, fp_fwd)
+
+    order = np.lexsort((fp, length, t_sg))
+    head = _heads(t_sg[order]) | _heads(length[order]) | _heads(fp[order])
+    grp_first = np.flatnonzero(head)
+    grp_of = np.cumsum(head) - 1
+    leader = order[grp_first][grp_of]
+    seg, j = _segments(length[order])
+    mem, ldr = order[seg], leader[seg]
+    same = (h[np.where(rev[mem], stop[mem] - 1 - j, first[mem] + j)]
+            == h[np.where(rev[ldr], stop[ldr] - 1 - j, first[ldr] + j)])
+    collided = np.unique(t_sg[mem[~same]])
+
+    count = np.diff(np.append(grp_first, len(order)))
+    n_fwd = np.add.reduceat((~rev[order]).astype(np.int64), grp_first)
+    g_sg = t_sg[order[grp_first]]
+    weight = length[order[grp_first]] * count
+    pick = np.lexsort((order[grp_first], -weight, g_sg))
+    pick = pick[_heads(g_sg[pick])]
+    if not np.array_equal(g_sg[pick], np.arange(n_sg)):
+        missing = np.setdiff1d(np.arange(n_sg), g_sg[pick])[0]
+        raise ValueError(f'Subgraph {missing} has no k-mer in a target assembly')
+    use_rev = (count - n_fwd) > n_fwd
+    hits = np.flatnonzero(rev[order] == use_rev[grp_of])
+    rep = tgt[order[hits[_heads(grp_of[hits])]]]
+    rep_loc, n_rep = rep[pick], count[pick]
+
+    for i in collided.tolist():
+        in_sg = np.flatnonzero(locs.sg == i)
+        kmers = [tuple(h[f:e].tolist()) for f, e in zip(locs.first[in_sg], locs.stop[in_sg])]
+        rep_order, n_rep[i] = _rep_order_exact(
+            [k for k, asm in zip(kmers, locs.asm[in_sg]) if asm < n_tar])
+        rep_loc[i] = in_sg[kmers.index(rep_order)]
+    return rep_loc, n_rep
+
+
+def _marker_loc(locs: _Locs, i: int, n_tar: int) -> MarkerLoc:
+    first, stop = int(locs.first[i]), int(locs.stop[i])
+    start, end = int(locs.start_pos[i]), int(locs.stop_pos[i])
+    return MarkerLoc(
+        assembly_idx=int(locs.asm[i]),
+        record_idx=int(locs.rec[i]),
+        start=start,
+        stop=end,
+        n_kmers=stop - first,
+        kmers=tuple(locs.hashes[first:stop].tolist()),
+        is_target=bool(locs.asm[i] < n_tar),
+        n_repeats=int(locs.n_repeats[i]),
+        len=end - start,
+    )
 
 
 def _get_graph_order(graph: HashGraph, rep_order: OrderedKmers, warnings: set) -> OrderedKmers | None:
@@ -233,43 +374,37 @@ def _get_graph_order(graph: HashGraph, rep_order: OrderedKmers, warnings: set) -
     return graph_order
 
 
-def _create_ck(graph, kmer_rows, kmerlen, windowsize, n_tar):
-    return ConnectedKmers(graph, kmer_rows, kmerlen, windowsize, n_tar)
+def _get_candidates(
+    kg: KmerGraph, n_tar: int, kmerlen: int, windowsize: int, span=None
+) -> list[ConnectedKmers]:
+    """Every subgraph's candidate, in subgraph order, from one pass over all
+    their k-mer rows; ``rows`` and ``locs`` set on ``span`` when it
+    records."""
+    subgraphs, graph = kg.subgraphs, kg.graph
+    with timeline.span('markers.candidate_args') as a:
+        if a:
+            a.set(nodes=sum(map(len, subgraphs)), graph_nodes=len(graph))
+        rows = _gather_rows(kg)
+        order = {n: i for i, n in enumerate(graph)}
+    if not subgraphs:
+        return []
+    locs = _get_locs(rows, kmerlen, windowsize)
+    rep_loc, n_rep = _rep_orders(locs, len(subgraphs), n_tar)
+    if span:
+        span.set(rows=len(rows.pos), locs=len(locs.sg))
 
-
-def _get_create_ck_args(kg: KmerGraph, n_tar: int, kmerlen: int, windowsize: int):
-    """Yield per-subgraph args (node order is the frozenset iteration order;
-    k-mer groups concatenated in that order). Each subgraph's graph is cut
-    from its own nodes by the kept graph's node ranks, so the whole costs
-    the subgraphs' size, not their number times the graph's."""
-    kmers = kg.kmers
-    nodes = kg.nodes
-    graph = kg.graph
-    record_offsets = np.asarray(kg.record_offsets, dtype=np.int64)
-
-    kmer_groups = {}
-    for node in nodes:
-        h, start, stop = int(node['hash']), int(node['start']), int(node['stop'])
-        kmer_groups[h] = kmers[start:stop]
-
-    order = {n: i for i, n in enumerate(graph)}
-    for sg in kg.subgraphs:
-        arg_graph = graph.subgraph(sg, order)
-        arg_nodes = tuple(sg)
-        groups = [kmer_groups.pop(int(h)) for h in arg_nodes]
-        n_rows = sum(len(g) for g in groups)
-        hashes = np.zeros(n_rows, dtype=np.uint64)
-        pos = np.zeros(n_rows, dtype=np.int64)
-        rec_g = np.zeros(n_rows, dtype=np.int64)
-        off = 0
-        for h, grp in zip(arg_nodes, groups):
-            hashes[off:off + len(grp)] = np.uint64(h)
-            pos[off:off + len(grp)] = grp['pos']
-            rec_g[off:off + len(grp)] = grp['record_idx']
-            off += len(grp)
-        asm = np.searchsorted(record_offsets, rec_g, side='right') - 1
-        rec_local = rec_g - record_offsets[asm]
-        yield arg_graph, (hashes, pos, asm, rec_local), kmerlen, windowsize, n_tar
+    all_cks = []
+    for sg, i, n in zip(subgraphs, rep_loc.tolist(), n_rep.tolist()):
+        rep = _marker_loc(locs, i, n_tar)
+        rep_order = OrderedKmers(rep.kmers)
+        warnings: set[str] = set()
+        if len(rep_order) == 1:
+            warnings.add('single')
+        if rep_order.is_dup:
+            warnings.add('dup')
+        path = _get_graph_order(graph.subgraph(sg, order), rep_order, warnings)
+        all_cks.append(ConnectedKmers(path, rep, n, warnings))
+    return all_cks
 
 
 def _fetch_cks_seq(all_cks: list[ConnectedKmers], assemblies: Assemblies, n_cpu: int) -> list[str]:
@@ -281,7 +416,7 @@ def _fetch_cks_seq(all_cks: list[ConnectedKmers], assemblies: Assemblies, n_cpu:
     with timeline.span('markers.fetch_seq') as s:
         if s:
             asms = {a for a, _, _, _ in spans}
-            s.set(assemblies=len(asms),
+            s.set(assemblies=len(asms), threads=fetch_threads(len(asms), n_cpu),
                   bytes=sum(os.path.getsize(assemblies.path[a]) for a in asms))
         all_seq = assemblies.fetch_seq(spans, n_cpu)
         for ck, seq in zip(all_cks, all_seq):
@@ -304,14 +439,7 @@ def _get_cks(
         tik = time()
         logger.info(' - Processing each subgraph...')
         with timeline.span('markers.candidates', subgraphs=len(kmers.subgraphs)) as s:
-            # a list, as `Pool.starmap` makes of an iterable without a length
-            with timeline.span('markers.candidate_args') as a:
-                if a:
-                    a.set(nodes=sum(map(len, kmers.subgraphs)), graph_nodes=len(kmers.graph))
-                args = list(_get_create_ck_args(kmers, n_tar, kmerlen, windowsize))
-            all_cks: list[ConnectedKmers] = pool_map(
-                _create_ck, args, processes=n_cpu, total=len(args))
-            del args
+            all_cks = _get_candidates(kmers, n_tar, kmerlen, windowsize, s)
             all_cks = [ck for ck in all_cks if (ck.len >= min_len) and (not ck.is_bad)]
             s.set(kept=len(all_cks))
         logger.info(f' - Found {len(all_cks)} candidate signatures')

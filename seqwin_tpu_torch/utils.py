@@ -10,9 +10,9 @@ in for pandas' CSV writer). Three primitives:
                    refused with ``FileExistsError``;
 - ``pool_map``  -- deterministic, order-preserving multiprocess fan-out.
 
-``pool_map`` forks: by the time the pipeline calls it the parent may hold a
-CUDA context, so the functions it runs touch numpy and the standard library
-only, never torch. A pool's life is three spans of the recorder
+``pool_map`` forks: by the time the pipeline calls it (BLAST's metrics
+only) the parent may hold a CUDA context, so the functions it runs touch
+numpy and the standard library only, never torch. A pool's life is three spans of the recorder
 (`engine/timeline.py`): ``pool.start`` (the fork), ``pool.map`` and
 ``pool.stop`` (the workers ended and reaped; ``child_cpu_s``, their user
 and system CPU seconds, taken only while the recorder is on).

@@ -1,7 +1,8 @@
 """seqwin_tpu_torch's `HashGraph.subgraph` with the parent's node ranks
 against the same call without them, the JAX package's copy and networkx,
-and the marker phase's per-subgraph arguments (`_get_create_ck_args`)
-against the JAX package's on one small k-mer graph."""
+and the marker phase's per-subgraph arguments (each subgraph's slice of
+`_gather_rows` and its cut graph) against the JAX package's
+`_get_create_ck_args` on one small k-mer graph."""
 import pickle
 from random import Random
 
@@ -136,15 +137,19 @@ def test_create_ck_args_match_jax(kmer_graphs):
     jax_kg, kg = kmer_graphs
     assert kg.subgraphs == jax_kg.subgraphs and len(kg.subgraphs) > 10
     assert _items(kg.graph) == _items(jax_kg.graph)
-    got = list(markers._get_create_ck_args(kg, 3, 17, 40))
+    rows = markers._gather_rows(kg)
+    order = {n: i for i, n in enumerate(kg.graph)}
+    got = [(kg.graph.subgraph(sg, order), tuple(a[lo:hi] for a in rows[:4]))
+           for sg, lo, hi in zip(kg.subgraphs, rows.offsets[:-1], rows.offsets[1:])]
     ref = list(jax_markers._get_create_ck_args(jax_kg, 3, 17, 40))
     assert len(got) == len(ref) == len(kg.subgraphs)
+    assert rows.offsets[-1] == len(rows.pos) == len(kg.kmers)  # every kept row, once
     # subgraphs of more than a node pair, so order has something to decide
     assert max(len(a[0]) for a in got) > 2
-    for (graph, rows, *rest), (jax_graph, jax_rows, *jax_rest) in zip(got, ref):
+    for (graph, rows), (jax_graph, jax_rows, *jax_rest) in zip(got, ref):
         assert _items(graph) == _items(jax_graph)
         assert len(rows) == len(jax_rows) == 4  # hashes, positions, assembly, record
         for a, b in zip(rows, jax_rows):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
-        assert rest == jax_rest
+        assert jax_rest == [17, 40, 3]

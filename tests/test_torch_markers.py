@@ -292,22 +292,41 @@ def test_windowed_ordered_preserves_submission_order():
     assert got == list(range(20))
 
 
-def test_fetch_seq_matches_jax(tmp_path):
-    """Marker sequences sliced out of the FASTAs (`load_fasta`), in span
-    order, with two worker processes."""
+@pytest.fixture
+def no_process_pools(monkeypatch):
+    """Creating a multiprocessing pool or a process pool executor raises."""
+    import concurrent.futures
+    import multiprocessing.pool
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('a process pool was created')
+
+    monkeypatch.setattr(multiprocessing.pool.Pool, '__init__', refuse)
+    monkeypatch.setattr(concurrent.futures.ProcessPoolExecutor, '__init__', refuse)
+
+
+@pytest.mark.parametrize('forbid_fork', [False, True])
+def test_fetch_seq_matches_jax(request, tmp_path, forbid_fork):
+    """Marker sequences sliced out of the FASTAs (`load_fasta`: lower case
+    read upper, a gzipped file among them), in span order, in two threads;
+    with every process pool refused too."""
     rng = np.random.default_rng(5)
     paths = []
-    for i in range(3):
-        p = tmp_path / f's{i}.fa'
+    for i in range(4):
+        p = tmp_path / (f's{i}.fa.gz' if i == 3 else f's{i}.fa')
         recs = [''.join(rng.choice(list('ACGTacgtn'), int(rng.integers(50, 400)))) for _ in range(3)]
-        p.write_text(''.join(f'>r{j}\n' + '\n'.join(r[o:o + 60] for o in range(0, len(r), 60)) + '\n'
-                             for j, r in enumerate(recs)))
+        text = ''.join(f'>r{j}\n' + '\n'.join(r[o:o + 60] for o in range(0, len(r), 60)) + '\n'
+                       for j, r in enumerate(recs))
+        p.write_bytes(gzip.compress(text.encode()) if i == 3 else text.encode())
         paths.append(p)
-    spans = [(int(rng.integers(0, 3)), int(rng.integers(0, 3)), s, s + int(rng.integers(1, 40)))
-             for s in rng.integers(0, 40, 12)]
-    got = assemblies.Assemblies(paths[:2], paths[2:]).fetch_seq(spans, n_cpu=2)
+    spans = [(int(rng.integers(0, 4)), int(rng.integers(0, 3)), s, s + int(rng.integers(1, 40)))
+             for s in rng.integers(0, 40, 16)]
     want = jax_assemblies.Assemblies(paths[:2], paths[2:]).fetch_seq(spans, n_cpu=1)
+    if forbid_fork:
+        request.getfixturevalue('no_process_pools')
+    got = assemblies.Assemblies(paths[:2], paths[2:]).fetch_seq(spans, n_cpu=2)
     assert got == want and all(got)
+    assert {a for a, _, _, _ in spans} == {0, 1, 2, 3}
 
 
 def test_mash_dist_parse_matches_jax(monkeypatch):

@@ -122,7 +122,6 @@ SPAN_TABLE = (
     'threshold.sketches', 'sketch.join', 'sketch.fetch', 'threshold.jaccard',
     'subgraphs.edges', 'subgraphs.search', 'subgraphs.compact',
     'markers.candidates', 'markers.candidate_args', 'markers.fetch_seq', 'markers.write',
-    'pool.start', 'pool.map', 'pool.stop',
 )
 MARKS = {'prep_start', 'h2d_submit', 'h2d_returned', 'dispatched', 'counts_fetch_start',
          'counts_fetched', 'agg_merge_nodes_done', 'agg_kn_d2h_done'}
@@ -248,25 +247,59 @@ def test_cli_run_records_every_span(cli_lists, clean_timelines, monkeypatch, tmp
     assert all(s.run == run.id for s in spans)
     phases = [s for s in spans if s.name.startswith('phase.')]
     assert len(phases) == 4 and all(s.parent == run.id for s in phases)
-    # the markers phase's children; every pool under one of them
+    # the markers phase's children, and no process pool under the phase
     markers = next(s for s in phases if s.name == 'phase.markers')
     for name in ('markers.candidates', 'markers.fetch_seq'):
         assert by_id[next(s for s in spans if s.name == name).parent] is markers
-    assert all(by_id[s.parent].name in ('markers.candidates', 'markers.fetch_seq')
-               for s in spans if s.name.startswith('pool.'))
-    assert all(s.attrs['child_cpu_s'] > 0 for s in spans if s.name == 'pool.stop')
+
+    def under_markers(s):
+        while s.parent is not None:
+            s = by_id[s.parent]
+            if s is markers:
+                return True
+        return False
+
+    assert not [s.name for s in spans if s.name.startswith('pool.') and under_markers(s)]
     fetch = next(s for s in spans if s.name == 'markers.fetch_seq')
     assert fetch.attrs['assemblies'] >= 1 and fetch.attrs['bytes'] > 0
-    # the nodes handed to the workers, out of the kept graph's
+    assert fetch.attrs['threads'] == min(2, fetch.attrs['assemblies'])
+    # the subgraphs' nodes, out of the kept graph's; their rows, and one
+    # largest run an assembly a subgraph at most
     cands = next(s for s in spans if s.name == 'markers.candidates')
     args = next(s for s in spans if s.name == 'markers.candidate_args')
     assert by_id[args.parent] is cands
     assert 2 * cands.attrs['subgraphs'] <= args.attrs['nodes'] <= args.attrs['graph_nodes']
+    assert args.attrs['nodes'] <= cands.attrs['rows']
+    assert cands.attrs['subgraphs'] <= cands.attrs['locs'] <= 6 * cands.attrs['subgraphs']
+    assert cands.attrs['locs'] <= cands.attrs['rows']
     blocks = [s for s in spans if s.name == 'build.blocks']
     assert len(blocks) == 6 and all(s.attrs['blocks'] >= 2 for s in blocks)
     assert all(by_id[s.parent].name == 'build.blocks'
                for s in spans if s.name == 'block.sync')
     assert next(s for s in spans if s.name == 'run.save_results').attrs['bytes'] > 0
+
+
+def _burn(n):
+    return sum(i * i for i in range(n))
+
+
+def test_pool_map_spans(clean_timelines, monkeypatch):
+    """`utils.pool_map` with two processes: its three spans children of the
+    caller's span, in order, and the workers' CPU seconds on `pool.stop`;
+    the results in job order."""
+    from seqwin_tpu_torch.utils import pool_map
+
+    monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    with timeline.span('caller') as caller:
+        out = pool_map(_burn, [(200_000 + i,) for i in range(8)], processes=2, total=8)
+    assert out == [_burn(200_000 + i) for i in range(8)]
+    spans = timeline.spans()
+    pools = [s for s in spans if s.name.startswith('pool.')]
+    assert [s.name for s in pools] == ['pool.start', 'pool.map', 'pool.stop']
+    assert all(s.parent == caller.id for s in pools)
+    assert pools[0].attrs == {'processes': 2}
+    assert pools[1].attrs == {'processes': 2, 'jobs': 8, 'chunksize': 1}
+    assert pools[2].attrs['child_cpu_s'] > 0
 
 
 @pytest.mark.parametrize('recording', [True, False])
