@@ -40,9 +40,11 @@ size its outputs.
 
 Spans (`engine/timeline.py`): ``hybrid.host_prep`` around every chunk's
 host prep, in whichever thread runs it (``parent`` names the span that
-handed it over), and ``block.sync`` around each host read of the block
-path: `scan_chunk_device`'s boolean index of the emission and
-`_block_adjust`'s `tolist()`.
+handed it over); inside it ``hybrid.patches`` around `host_patches`, with
+the chunk's ``records`` (record starts), ``windows`` (irregular windows
+patched) and ``ranks`` (positions hashed for them); and ``block.sync``
+around each host read of the block path: `scan_chunk_device`'s boolean
+index of the emission and `_block_adjust`'s `tolist()`.
 """
 from __future__ import annotations
 
@@ -202,7 +204,7 @@ def host_patches(starts: np.ndarray, k: int, w: int, n: int,
                  total: int | None = None,
                  inv_points: np.ndarray | None = None,
                  codes: np.ndarray | None = None,
-                 packed: np.ndarray | None = None):
+                 packed: np.ndarray | None = None, span=None):
     """Irregular windows and their exact rightmost-argmin patches, on host.
 
     Phase 1 assumes every window of w consecutive positions is w consecutive
@@ -214,7 +216,9 @@ def host_patches(starts: np.ndarray, k: int, w: int, n: int,
     window -- O(Q + w * #groups) hashed positions.
 
     Exactly one of ``codes`` (augmented byte stream) / ``packed`` (2-bit
-    stream, requires ``inv_points``) supplies the hash input.
+    stream, requires ``inv_points``) supplies the hash input. ``span``, an
+    open `timeline.span`, receives the ``windows`` patched and the
+    ``ranks`` hashed.
 
     Returns (irr_pos int32[Q], patch_z int32[Q]); ``patch_z`` is the stream
     position of each window's rightmost minimal member (-1 = no minimum).
@@ -244,6 +248,8 @@ def host_patches(starts: np.ndarray, k: int, w: int, n: int,
     lens = hi - lo + 1
     flat_off = np.concatenate(([0], np.cumsum(lens)))
     r_tot = int(flat_off[-1])
+    if span:
+        span.set(windows=Q, ranks=r_tot)
 
     # hash every needed rank once
     all_ranks = np.arange(r_tot, dtype=np.int64) + np.repeat(lo - flat_off[:-1], lens)
@@ -382,7 +388,8 @@ def chunk_host_prep(record_codes: list[np.ndarray], k: int, w: int,
         codes, starts = _host_layout(record_codes, total, out=out)
         # empty records share their start with the next record (or sit at total)
         codes[starts[starts < total]] |= 64
-        irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes)
+        with timeline.span('hybrid.patches', records=len(starts), windows=0, ranks=0) as s:
+            irr_pos, patch_z = host_patches(starts, k, w, total, codes=codes, span=s)
         asm_tab = _asm_table(record_offsets, rec_base, len(starts), len(starts))
     return codes, starts, irr_pos, patch_z, asm_tab
 

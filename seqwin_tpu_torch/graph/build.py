@@ -28,7 +28,8 @@ same output. ``backend='numpy'|'oracle'`` builds on the host with
 Spans (`engine/timeline.py`): ``build`` around a build; in it
 ``build.ingest_wait`` (the main thread waiting on the next parsed assembly;
 the parse threads' ``io.parse`` are children of ``build``),
-``hybrid.host_prep`` in the prep pool's threads, ``build.prep_wait`` (the
+``hybrid.host_prep`` in the prep pool's threads (its irregular-window
+patches ``hybrid.patches`` inside), ``build.prep_wait`` (the
 main thread blocked on a prep future), ``build.dispatch`` (a deferred
 chunk's enqueue), ``build.blocks`` per long record (its ``block.sync``
 reads inside), ``build.counts_fetch`` and ``build.aggregate``.

@@ -117,8 +117,9 @@ def test_timeline_events_match_jax(fastas, clean_timelines, monkeypatch):
 SPAN_TABLE = (
     'run', 'run.assemblies', 'run.save_results',
     'phase.build_graph', 'phase.threshold', 'phase.subgraphs', 'phase.markers',
-    'build', 'io.parse', 'build.ingest_wait', 'hybrid.host_prep', 'build.prep_wait',
-    'build.dispatch', 'build.blocks', 'block.sync', 'build.counts_fetch', 'build.aggregate',
+    'build', 'io.parse', 'build.ingest_wait', 'hybrid.host_prep', 'hybrid.patches',
+    'build.prep_wait', 'build.dispatch', 'build.blocks', 'block.sync', 'build.counts_fetch',
+    'build.aggregate',
     'threshold.sketches', 'sketch.join', 'sketch.fetch', 'threshold.jaccard',
     'subgraphs.edges', 'subgraphs.search', 'subgraphs.compact',
     'markers.candidates', 'markers.candidate_args', 'markers.fetch_seq', 'markers.write',
@@ -185,6 +186,55 @@ def test_build_spans_from_prep_threads(fastas, clean_timelines, monkeypatch, slo
     parses = [s for s in spans if s.name == 'io.parse']
     assert len(parses) == 3 and all(s.parent == root.id and s.attrs['records'] == 2
                                     for s in parses)
+
+
+@pytest.mark.parametrize('recording', [True, False])
+def test_patch_spans(fastas, clean_timelines, monkeypatch, recording):
+    """A three-chunk build: one `hybrid.patches` a chunk, inside that chunk's
+    `hybrid.host_prep` on the same thread, with the chunk's record starts,
+    the windows `host_patches` returned and the positions it hashed;
+    nothing when off."""
+    import threading
+
+    from seqwin_tpu_torch.engine import hybrid
+    from seqwin_tpu_torch.ops import host_hash
+
+    calls, lock, local = [], threading.Lock(), threading.local()
+    orig_hash, orig_patches = host_hash.canon_at, hybrid.host_patches
+
+    def canon_at(codes, pos, k):
+        local.hashed += len(pos)
+        return orig_hash(codes, pos, k)
+
+    def host_patches(starts, *args, **kwargs):
+        local.hashed = 0
+        irr_pos, patch_z = orig_patches(starts, *args, **kwargs)
+        with lock:
+            calls.append((len(starts), len(irr_pos), local.hashed))
+        return irr_pos, patch_z
+
+    monkeypatch.setattr(host_hash, 'canon_at', canon_at)
+    monkeypatch.setattr(hybrid, 'host_patches', host_patches)
+    monkeypatch.setattr(build_mod, 'DEFAULT_CHUNK_BASES', BUDGET)
+    if recording:
+        monkeypatch.setenv('SEQWIN_TPU_TORCH_TIMELINE', '1')
+    paths, targets = fastas
+    build(paths, K, W, targets, n_cpu=2, device='cpu')
+    assert len(calls) == 3 and all(q > 0 and r >= q for _, q, r in calls)
+    spans = timeline.spans()
+    if not recording:
+        assert spans == []
+        return
+    by_id = {s.id: s for s in spans}
+    patches = [s for s in spans if s.name == 'hybrid.patches']
+    assert len(patches) == 3
+    for s in patches:
+        prep = by_id[s.parent]
+        assert prep.name == 'hybrid.host_prep' and prep.thread == s.thread
+        assert prep.start_ns <= s.start_ns <= s.end_ns <= prep.end_ns
+        assert set(s.attrs) == {'records', 'windows', 'ranks'}
+    assert sorted((s.attrs['records'], s.attrs['windows'], s.attrs['ranks'])
+                  for s in patches) == sorted(calls)
 
 
 def _genome(rng, root, snp):
